@@ -1,0 +1,69 @@
+"""Carry state across from the JAX package, as numpy arrays.
+
+This system has no weights: its parameters are the design vector, the
+mesh, the filter and the built shift-invert factor. The functions here
+turn numpy arrays (taken from ``eigd_tpu`` objects with ``np.asarray`` by
+the caller, so this module never imports jax) into the port's objects on a
+given device. The parity tests use them to run both packages on identical
+state, e.g. a multigrid factor whose Chebyshev bounds came from JAX's
+random power-iteration start.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .fem.filter import NodeFilter
+from .models.natural_frequency import TopologyAnalysis
+from .ops.multigrid import GridMGFactor
+from .ops.stencil import GridStencilOperator
+
+
+def _t(a, device, dtype=None):
+    return None if a is None else torch.as_tensor(np.array(a), dtype=dtype,
+                                                  device=device)
+
+
+def analysis_from_numpy(x, X, conn, dvmap, num_design_vars, kernel,
+                        grid_shape, r0, device="cpu", projection=False,
+                        beta=10.0, eta=0.5, **config):
+    """A ``TopologyAnalysis`` on the given state.
+
+    x : design vector; X, conn : the mesh; dvmap, num_design_vars, kernel,
+    r0 : the conv filter (its ``dvmap`` and ``_kernel``); grid_shape and
+    ``config`` (the TopologyAnalysis keyword fields: N, m, sigma, lanczos_*,
+    factor_options, adjoint_options, ...).
+    """
+    fltr = NodeFilter(conn, X, r0=r0, ftype="conv", dvmap=dvmap,
+                      num_design_vars=num_design_vars, beta=beta, eta=eta,
+                      projection=projection, grid_shape=grid_shape,
+                      device=device)
+    fltr._kernel = _t(kernel, device, torch.float64)
+    topo = TopologyAnalysis(fltr, conn, X, grid_shape=grid_shape,
+                            device=device, **config)
+    topo.x = _t(x, device, torch.float64)
+    return topo
+
+
+def stencil_operator_from_numpy(W, mats, dofs, n, grid_shape, ndof,
+                                device="cpu"):
+    """A ``GridStencilOperator`` from its stencil W (X, Y, 3, 3, ndof,
+    ndof), element matrices and DOF map (either may be None)."""
+    return GridStencilOperator(_t(mats, device),
+                               _t(dofs, device, torch.int64), n,
+                               _t(W, device), grid_shape, ndof)
+
+
+def mg_factor_from_numpy(Ws, dinvs, lmaxs, coarse_inv, W64, shapes, ndof,
+                         device="cpu", **options):
+    """A ``GridMGFactor`` holding a built hierarchy: level stencils, Jacobi
+    inverses, lambda_max values, the dense coarse inverse and the f64 fine
+    stencil. ``options`` are the factor's keyword fields (rtol, maxiter,
+    approx_rtol, vcycle, ...)."""
+    return GridMGFactor([_t(W, device, torch.float32) for W in Ws],
+                        [_t(d, device, torch.float32) for d in dinvs],
+                        [float(v) for v in lmaxs],
+                        _t(coarse_inv, device, torch.float32),
+                        _t(W64, device, torch.float64), shapes, ndof,
+                        **options)

@@ -1,0 +1,186 @@
+"""``eigh_gen`` as a ``torch.autograd.Function``.
+
+Counterpart of ``eigd_tpu/ops/autodiff.py:36-349``:
+
+    lam, Phi = eigh_gen(theta, problem, cfg)
+
+composes with ``torch.autograd``. The forward pass assembles the operators,
+attaches the kernels' plane stencils at the solver boundary, builds the
+shift-invert factor and runs the block Lanczos eigensolve, all without
+autograd. The backward pass runs the adjoint solve (LAA guess + SIBK) with
+the repeated-eigenvalue correction and chains the matrix cotangents into
+theta by ``torch.autograd.grad`` of the bilinear forms
+sum_i w_i^T A(theta) phi_i over a fresh, plain assembly. So no kernel is
+ever inside the autograd graph, and the kernels need no backward.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from . import adjoint as adj
+from .lanczos import b_orthonormalize_rows, block_lanczos_solve
+
+
+@dataclasses.dataclass(frozen=True)
+class EighGenConfig:
+    """Static configuration of the eigh_gen primitive.
+
+    kernel_mv : attach the kernels' plane stencils to grid operators at the
+        solver boundary, so solver-side f64 ``A.mv``/``B.mv`` run on K2 and
+        f32 ones on K1. "auto" = on when the operators live on CUDA; "on"
+        forces (CPU tensors then run the kernels' plain twins); "off"
+        disables. (JAX's ``pallas_mv``; its "interpret" value has no
+        counterpart.)
+    """
+
+    N: int = 6
+    m: int = 60
+    sigma: float = 0.0
+    mode: str = "normal"
+    adjoint_method: str = "sibk"
+    adjoint_maxiter: int = 50
+    adjoint_rtol: float = 1e-12
+    nrestart: int = 2
+    eig_atol: float = 1e-5
+    seed: int = 12345
+    lanczos_tol: float = None
+    block: int = 1  # forward Lanczos block size (p vectors per factor apply)
+    adjoint_mixed: bool = False  # f32 SIBK ladder + f64 restarts
+    adjoint_ladder: str = "approx"  # mixed-sibk per-step apply
+    lanczos_ortho: str = "full"  # "local": 3-term recurrence + Gram-RR
+    lanczos_check_every: int = 1  # adaptive-exit check cadence
+    polish: int = 0  # Ritz-block subspace-iteration polish steps
+    polish_spare: int = 0  # extra Ritz vectors carried through the polish
+    lanczos_sweep: str = "exact"  # "approx": inexact f32 sweep + polish
+    kernel_mv: str = "auto"
+
+
+@dataclasses.dataclass(frozen=True)
+class EigProblem:
+    """Static description of a parameterized generalized eigenproblem.
+
+    assemble(theta) -> (A, B) operators, differentiable in theta.
+    nullspace(theta) -> (k, n) rows of a known null space of A (deflated).
+    factor(A, B, sigma, mode) -> shift-invert factor.
+    v0(theta) -> Lanczos start vector or (n, p) block, optional.
+    """
+
+    assemble: Callable
+    nullspace: Callable = None
+    factor: Callable = None
+    v0: Callable = None
+
+
+def _kernel_ops(A, B, cfg):
+    """Solver-boundary operator enhancement: attach the kernels' plane
+    stencils (``GridStencilOperator.with_kernels``)."""
+    if cfg.kernel_mv == "auto":
+        on = getattr(A, "device", torch.device("cpu")).type == "cuda"
+    elif cfg.kernel_mv in ("on", "off"):
+        on = cfg.kernel_mv == "on"
+    else:
+        raise ValueError(f"Unknown kernel_mv {cfg.kernel_mv!r}")
+    if not on:
+        return A, B
+    if hasattr(A, "with_kernels") and A.Wp64 is None:
+        A = A.with_kernels()
+    if hasattr(B, "with_kernels") and B.Wp64 is None:
+        B = B.with_kernels()
+    return A, B
+
+
+def _forward_ops(theta, problem, A, B, cfg):
+    A, B = _kernel_ops(A, B, cfg)
+    if problem.factor is None:
+        raise NotImplementedError(
+            "the default dense shift-invert factors (ops/factor.py) are not "
+            "ported (ROADMAP queue 1, item 4): give EigProblem.factor")
+    factor = problem.factor(A, B, cfg.sigma, cfg.mode)
+    deflate = None
+    if problem.nullspace is not None:
+        deflate = b_orthonormalize_rows(problem.nullspace(theta), B.mv)
+    v0 = problem.v0(theta) if problem.v0 is not None else None
+    if cfg.block <= 1:
+        raise NotImplementedError(
+            "the single-vector Lanczos solver is not ported (ROADMAP queue "
+            "1, item 12): use block > 1")
+    res = block_lanczos_solve(A, B, factor, cfg.sigma, cfg.N, cfg.m,
+                              cfg.block, mode=cfg.mode, seed=cfg.seed,
+                              deflate=deflate, tol=cfg.lanczos_tol, v0=v0,
+                              ortho=cfg.lanczos_ortho,
+                              check_every=cfg.lanczos_check_every,
+                              polish=cfg.polish,
+                              polish_spare=cfg.polish_spare,
+                              sweep=cfg.lanczos_sweep)
+    return A, B, res, factor
+
+
+def solve_eig_adjoint(A, B, res, factor, lam_bar, Phi_bar, cfg):
+    """Reverse-pass core: adjoint solve + correction + weight blocks.
+
+    Returns (W_A, W_B, Phi) such that the matrix cotangents are
+    A_bar = W_A Phi^T and B_bar = -W_B Phi^T (normal mode).
+    """
+    if cfg.adjoint_method not in ("laa", "sibk"):
+        raise NotImplementedError(
+            f"adjoint_method={cfg.adjoint_method!r} is not ported (ROADMAP "
+            "queue 1, item 12 lists pcpg, pgmres and dl)")
+    psi0 = adj.laa(Phi_bar, B, factor, res, b_ortho=True, mode=cfg.mode,
+                   approx=(cfg.adjoint_mixed
+                           and cfg.adjoint_method == "sibk"))
+    if cfg.adjoint_method == "laa":
+        psi, data = adj.generate_adjoint_correction(
+            res.lam, res.Phi, psi0, Phib=Phi_bar, eig_atol=cfg.eig_atol,
+            mode=cfg.mode)
+    else:
+        psi, data, _ = adj.sibk(
+            Phi_bar, A, B, res.lam, res.Phi, mode=cfg.mode, psi=psi0,
+            sigma=res.sigma, factor=factor, rtol=cfg.adjoint_rtol,
+            eig_atol=cfg.eig_atol, maxiter=cfg.adjoint_maxiter,
+            nrestart=cfg.nrestart, mixed=cfg.adjoint_mixed,
+            ladder=cfg.adjoint_ladder)
+    W_A, W_B = adj.total_derivative_weights(
+        res.lam, res.Phi, lam_bar, Phi_bar, psi, adj_corr_data=data,
+        mode=cfg.mode)
+    return W_A, W_B, res.Phi
+
+
+class EighGen(torch.autograd.Function):
+    """N smallest eigenpairs of A(theta) phi = lam B(theta) phi."""
+
+    @staticmethod
+    def forward(ctx, theta, problem, cfg):
+        A, B = problem.assemble(theta)
+        A, B, res, factor = _forward_ops(theta, problem, A, B, cfg)
+        # the reverse pass never reads res.BV: drop the (m, n) buffer
+        ctx.solve = (A, B, dataclasses.replace(res, BV=None), factor)
+        ctx.problem, ctx.cfg = problem, cfg
+        ctx.save_for_backward(theta)
+        return res.lam, res.Phi
+
+    @staticmethod
+    def backward(ctx, lam_bar, Phi_bar):
+        (theta,) = ctx.saved_tensors
+        A, B, res, factor = ctx.solve
+        if lam_bar is None:
+            lam_bar = torch.zeros_like(res.lam)
+        if Phi_bar is None:
+            Phi_bar = torch.zeros_like(res.Phi)
+        W_A, W_B, Phi = solve_eig_adjoint(A, B, res, factor, lam_bar,
+                                          Phi_bar, ctx.cfg)
+        with torch.enable_grad():
+            th = theta.detach().requires_grad_(True)
+            A2, B2 = ctx.problem.assemble(th)
+            f = torch.sum(W_A * A2.mv(Phi)) - torch.sum(W_B * B2.mv(Phi))
+            (theta_bar,) = torch.autograd.grad(f, th)
+        return theta_bar, None, None
+
+
+def eigh_gen(theta, problem: EigProblem, cfg: EighGenConfig):
+    """N smallest eigenpairs of A(theta) phi = lam B(theta) phi, with the
+    adjoint backward pass."""
+    return EighGen.apply(theta, problem, cfg)

@@ -1,0 +1,413 @@
+"""Block shift-and-invert Lanczos with B-inner-product orthogonalization.
+
+Counterpart of the block path of ``eigd_tpu/ops/lanczos.py``
+(``block_lanczos_solve`` and its setup, extraction and Ritz polish). The
+reduced symmetric eigenproblems use ``torch.linalg.eigh`` in f64, which
+takes the place of JAX's ``eigh_accurate`` (a Jacobi polish that exists
+because XLA:TPU's eigh floors near 1e-7). The basis arrays are
+preallocated and updated in place. The single-vector solver
+(``lanczos_solve``) is not ported (ROADMAP queue 1, item 12).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import types
+
+import torch
+
+from .collective import chunked_dot_f32, pdot
+from .sync import host_bool
+
+
+def _normal_mode_only(mode):
+    if mode != "normal":
+        raise NotImplementedError(
+            f"mode={mode!r}: only the normal mode is ported (ROADMAP queue "
+            "1, item 14 lists buckling)")
+
+
+def map_ritz_values(theta, sigma, mode):
+    """Undo the shift-invert spectral map: lam = 1/theta + sigma."""
+    _normal_mode_only(mode)
+    lam = 1.0 / theta + sigma
+    return lam, torch.argsort(lam, stable=True)
+
+
+def full_rayleigh_ritz(BV, W_raw, sigma, mode):
+    """Rayleigh-Ritz with the fully measured projected operator
+    ``Hf[j, i] = BV[j] . W_raw[i]``, symmetrized."""
+    Hf = BV @ W_raw.T
+    T = 0.5 * (Hf + Hf.T)
+    theta, Y = torch.linalg.eigh(T)
+    lam, order = map_ritz_values(theta, sigma, mode)
+    return theta, Y, lam, order
+
+
+@dataclasses.dataclass
+class LanczosResult:
+    """Everything the adjoint solvers need from the forward eigensolve."""
+
+    lam: torch.Tensor  # (N,) selected eigenvalues, sorted
+    Phi: torch.Tensor  # (n, N) B-orthonormal eigenvectors
+    V: torch.Tensor  # (m+1, n) Lanczos basis (rows)
+    BV: torch.Tensor  # (m+1, n) cached B @ V (dropped after the forward)
+    alpha: torch.Tensor  # (m,)
+    beta: torch.Tensor  # (m,)
+    H: torch.Tensor  # (m, m) symmetrized projected operator
+    theta: torch.Tensor  # (m,) reduced eigenvalues (eigh order)
+    Y: torch.Tensor  # (m, m) reduced eigenvectors (eigh order)
+    order: torch.Tensor  # (m,) sort order of mapped eigenvalues
+    lam_all: torch.Tensor  # (m,) all mapped Ritz values (eigh order)
+    eig_res: torch.Tensor  # (N,) per-mode residual estimate
+    sigma: torch.Tensor  # scalar shift
+    niter: int  # Krylov vectors actually built
+    eig_res_measured: torch.Tensor = None  # (N,) measured pencil residual
+
+    @property
+    def m(self):
+        return self.alpha.shape[0]
+
+    @property
+    def N(self):
+        return self.lam.shape[0]
+
+    @property
+    def Ys(self):
+        """Reduced eigenvectors permuted to sorted-eigenvalue order."""
+        return self.Y[:, self.order]
+
+    @property
+    def theta_s(self):
+        return self.theta[self.order]
+
+
+def b_orthonormalize_rows(U0, B_mv):
+    """B-orthonormalize a small set of row vectors (modified Gram-Schmidt).
+
+    U0 : (k, n) rows. Returns (U, BU) with U B-orthonormal.
+    """
+    rows, brows = [], []
+    for i in range(U0.shape[0]):
+        u = U0[i]
+        for v, bv in zip(rows, brows):
+            u = u - pdot(bv, u) * v
+        bu = B_mv(u)
+        nrm = torch.sqrt(pdot(u, bu))
+        rows.append(u / nrm)
+        brows.append(bu / nrm)
+    return torch.stack(rows), torch.stack(brows)
+
+
+def b_qr_tall(X, B_mv):
+    """B-orthonormal thin QR of an (n, p) block by column-scaled
+    CholeskyQR2 in the B inner product. Returns (Q, BQ, R) with
+    Q^T B Q = I and X = Q R."""
+    def solve_cols(L, Z):
+        return torch.linalg.solve_triangular(L, Z.T, upper=False).T
+
+    def one_pass(X, BX):
+        G = X.T @ BX
+        G = 0.5 * (G + G.T)
+        cn = torch.sqrt(torch.clamp(torch.diagonal(G), min=1e-300))
+        Gs = G / (cn[:, None] * cn[None, :])
+        eye = torch.eye(G.shape[0], dtype=G.dtype, device=G.device)
+        L = torch.linalg.cholesky(Gs + 1e-14 * eye)
+        Q = solve_cols(L, X / cn[None, :])
+        BQ = solve_cols(L, BX / cn[None, :])
+        return Q, BQ, L.T * cn[None, :]
+
+    Q, BQ, R1 = one_pass(X, B_mv(X))
+    Q, BQ, R2 = one_pass(Q, BQ)
+    return Q, BQ, R2 @ R1
+
+
+def _deflator(deflate):
+    """Projector keeping a block B-orthogonal to the deflated rows (U, BU)
+    (identity without deflation)."""
+    if deflate is None:
+        return lambda Wb: Wb
+    U, BU = deflate
+    return lambda Wb: Wb - U.T @ (BU @ Wb)
+
+
+def polish_ritz_block(A, B, factor, lam, Phi, sigma, mode, deflate=None,
+                      nsteps=1):
+    """Shift-invert subspace-iteration polish of the selected Ritz block,
+    with a pencil Rayleigh-Ritz re-extraction.
+
+    Each step applies the accurate factor to B Phi (warm-started at
+    Phi/(lam - sigma) when the factor has ``mv_warm``), B-orthonormalizes,
+    and re-extracts from the pencil projected on that block. Returns
+    (lam, Phi, eig_res) with eig_res the measured pencil residual
+    ||A phi - lam B phi|| of the returned pairs.
+    """
+    _normal_mode_only(mode)
+    defl = _deflator(deflate)
+
+    mv_warm = getattr(factor, "mv_warm", None)
+    for _ in range(nsteps):
+        if mv_warm is not None:
+            denom = lam - sigma
+            zero = denom == 0.0
+            scale = torch.where(zero, 0.0,
+                                1.0 / torch.where(zero, 1.0, denom))
+            Z = mv_warm(B.mv(Phi), Phi * scale[None, :])
+        else:
+            Z = factor.mv(B.mv(Phi))
+        Z, BZ, _ = b_qr_tall(defl(Z), B.mv)
+        AZ = A.mv(Z)
+        Hp = Z.T @ AZ  # (N, N); Z^T B Z = I
+        Hp = 0.5 * (Hp + Hp.T)
+        mu, Wp = torch.linalg.eigh(Hp)
+        order = torch.argsort(mu, stable=True)
+        lam = mu[order]
+        Wsel = Wp[:, order]
+        mu_sel = mu[order]
+        Phi = Z @ Wsel
+    R = AZ @ Wsel - (BZ @ Wsel) * mu_sel[None, :]
+    eig_res = torch.sqrt(torch.sum(R * R, dim=0))
+    return lam, Phi, eig_res
+
+
+def _uniform_block(n, p, seed, dtype, device):
+    g = torch.Generator().manual_seed(seed)
+    v = 2.0 * torch.rand((n, p), generator=g, dtype=torch.float64) - 1.0
+    return v.to(device=device, dtype=dtype)
+
+
+def _block_lanczos_setup(A, B, factor, sigma, N, m, p, mode="normal",
+                         seed=12345, v0=None, deflate=None, ortho="full",
+                         sweep="exact"):
+    """Block-Lanczos machinery: the per-step function and the initial
+    state. ``step(t, s)`` advances block t of the state ``s`` in place."""
+    _normal_mode_only(mode)
+    dtype = A.dtype
+    n = A.shape[0]
+    device = A.device
+    if sweep == "approx":
+        # the factor's inexact f32 solve (its forward-sweep channel when it
+        # has one); the polish's accurate applies recover the eigenpairs
+        approx_fn = getattr(factor, "sweep_mv", None) or factor.approx_mv
+
+        def apply_fn(Xb):
+            return approx_fn(Xb).to(dtype)
+    elif sweep == "exact":
+        def apply_fn(Xb):
+            return factor.mv(Xb)
+    else:
+        raise ValueError(f"Unknown sweep {sweep!r}")
+    q = -(-m // p)
+    mtot = q * p
+
+    # Start block from explicit torch.Generators (JAX draws from
+    # jax.random, which gives other numbers: parity runs pass v0).
+    if v0 is None:
+        v0 = _uniform_block(n, p, seed, dtype, device)
+    if v0.ndim == 1:
+        extra = _uniform_block(n, p - 1, seed + 1, dtype, device)
+        v0 = torch.cat([v0[:, None], extra], dim=1)
+
+    defl = _deflator(deflate)
+
+    rows = (q + 1) * p
+    Q0, BQ0, _ = b_qr_tall(defl(v0), B.mv)
+    s = types.SimpleNamespace()
+    s.V = torch.zeros((rows, n), dtype=dtype, device=device)
+    s.BV = torch.zeros((rows, n), dtype=dtype, device=device)
+    s.V[:p] = Q0.T
+    s.BV[:p] = BQ0.T
+    # Measured projected operator, accumulated by column block (rows above
+    # the current block are zero and are recovered by symmetry at the end)
+    s.Hraw = torch.zeros((rows, mtot), dtype=dtype, device=device)
+    s.Hc = torch.zeros((rows, mtot), dtype=dtype, device=device)
+    col = torch.arange(rows, device=device)
+
+    local = ortho == "local" and dtype == torch.float64
+    if local:
+        s.V32 = s.V.to(torch.float32)
+        s.BV32 = s.BV.to(torch.float32)
+        s.Graw = torch.zeros((rows, mtot), dtype=dtype, device=device)
+    else:
+        s.V32 = s.BV32 = s.Graw = None
+
+    def step(t, s):
+        lo = t * p
+        w = apply_fn(s.BV[lo:lo + p].T)  # (n, p) blocked apply
+        if local:
+            # merged measurement: [RR column | Gram column] of block t
+            hg = s.BV @ torch.cat([w, s.V[lo:lo + p].T], dim=1)
+            s.Hraw[:, lo:lo + p] = hg[:, :p]
+            s.Graw[:, lo:lo + p] = hg[:, p:]
+        else:
+            s.Hraw[:, lo:lo + p] = s.BV @ w
+        w = defl(w)
+        if local:
+            # three-term recurrence against the previous two blocks, plus
+            # one f32 sweep against the whole basis (bounds the Paige
+            # drift; the Gram Rayleigh-Ritz absorbs what is left)
+            lo2 = max(lo - p, 0)
+            Vp = s.V[lo2:lo2 + 2 * p]
+            BVp = s.BV[lo2:lo2 + 2 * p]
+            h1l = BVp @ w
+            w = w - Vp.T @ h1l
+            h2l = BVp @ w
+            w = w - Vp.T @ h2l
+            h = torch.zeros((rows, p), dtype=dtype, device=device)
+            h[lo2:lo2 + 2 * p] = h1l + h2l
+            mask64 = (col < lo + p).to(dtype)
+            hfar = chunked_dot_f32(s.BV32, w) * mask64[:, None]
+            w = w - (s.V32.T @ hfar.to(torch.float32)).to(dtype)
+            hfar2 = chunked_dot_f32(s.BV32, w) * mask64[:, None]
+            w = w - (s.V32.T @ hfar2.to(torch.float32)).to(dtype)
+        else:
+            mask = (col < lo + p).to(dtype)
+            h1 = (s.BV @ w) * mask[:, None]
+            w = w - s.V.T @ h1
+            h2 = (s.BV @ w) * mask[:, None]
+            w = w - s.V.T @ h2
+            h = h1 + h2
+        w = defl(w)
+        Qb, BQb, Rb = b_qr_tall(w, B.mv)
+        s.V[lo + p:lo + 2 * p] = Qb.T
+        s.BV[lo + p:lo + 2 * p] = BQb.T
+        if local:
+            s.V32[lo + p:lo + 2 * p] = Qb.T.to(torch.float32)
+            s.BV32[lo + p:lo + 2 * p] = BQb.T.to(torch.float32)
+        h[lo + p:lo + 2 * p] = Rb
+        s.Hc[:, lo:lo + p] = h
+
+    return types.SimpleNamespace(step=step, state=s, q=q, mtot=mtot)
+
+
+def _block_lanczos_extract(A, B, factor, sigma, N, mode, s, niter, p,
+                           guard_tiny0, ortho, polish, polish_spare,
+                           deflate):
+    """Rayleigh-Ritz extraction tail of the block Lanczos solve (symmetric
+    completion, Gram Rayleigh-Ritz, selection, residual bound, polish)."""
+    V = s.V
+    mtot = s.Hraw.shape[1]
+    dtype = V.dtype
+    device = V.device
+    guard_tiny = guard_tiny0
+    blk = torch.arange(mtot, device=device) // p
+    filled = blk[:, None] <= blk[None, :]
+    Hr = s.Hraw[:mtot]
+    Hm = torch.where(filled, Hr, Hr.T)
+    H = 0.5 * (Hm + Hm.T)
+
+    if ortho == "local":
+        # Generalized Rayleigh-Ritz with the measured Gram matrix, rank
+        # revealing: Gram directions below 1e-6 of the largest are dropped
+        Gr = s.Graw[:mtot]
+        Gm = torch.where(filled, Gr, Gr.T)
+        G = 0.5 * (Gm + Gm.T)
+        dg = torch.diagonal(G)
+        G = G + torch.diag((dg == 0.0).to(dtype))  # inactive rows
+        sG, UG = torch.linalg.eigh(G)
+        keep = sG > 1e-6 * torch.max(sG)
+        inv_sqrt = torch.where(
+            keep, 1.0 / torch.sqrt(torch.clamp(sG, min=1e-300)), 0.0)
+        Wt = UG * inv_sqrt[None, :]
+        Ht = Wt.T @ H @ Wt
+        Ht = 0.5 * (Ht + Ht.T)
+        theta, Yt = torch.linalg.eigh(Ht)
+        Y = Wt @ Yt
+        guard_tiny = True  # dropped directions carry theta = 0
+    else:
+        theta, Y = torch.linalg.eigh(H)
+    if guard_tiny:
+        # inactive / truncated directions (theta ~ 0) sort last
+        scale = torch.max(torch.abs(theta))
+        tiny = torch.abs(theta) <= 1e-12 * scale
+        lam_all = torch.where(tiny, torch.inf,
+                              1.0 / torch.where(tiny, 1.0, theta) + sigma)
+        order = torch.argsort(lam_all, stable=True)
+    else:
+        lam_all, order = map_ritz_values(theta, sigma, mode)
+
+    sel = order[:N]
+    lam = lam_all[sel]
+    Y0 = Y[:, sel]
+    Phi = V[:mtot].T @ Y0
+    # classical block-Lanczos bound ||R_end Y_last|| of the last block
+    lo_end = min(max(niter - p, 0), mtot - p)
+    Rblk = s.Hc[lo_end + p:lo_end + 2 * p, lo_end:lo_end + p]
+    Ylast = Y0[lo_end:lo_end + p]
+    eig_res = torch.sqrt(torch.sum((Rblk @ Ylast) ** 2, dim=0))
+
+    eig_res_measured = None
+    if polish:
+        spare = min(int(polish_spare), mtot - N) if polish_spare else 0
+        if spare > 0:
+            # polish an extended Ritz block so errors in the nearby
+            # directions just above lam_N contract too
+            sel_e = order[:N + spare]
+            lam_e = lam_all[sel_e]
+            Phi_e = V[:mtot].T @ Y[:, sel_e]
+            lam_e, Phi_e, res_e = polish_ritz_block(
+                A, B, factor, lam_e, Phi_e, sigma, mode, deflate=deflate,
+                nsteps=polish)
+            lam, Phi, eig_res = lam_e[:N], Phi_e[:, :N], res_e[:N]
+        else:
+            lam, Phi, eig_res = polish_ritz_block(
+                A, B, factor, lam, Phi, sigma, mode, deflate=deflate,
+                nsteps=polish)
+        eig_res_measured = eig_res
+
+    zeros_m = torch.zeros(mtot, dtype=dtype, device=device)
+    return LanczosResult(
+        lam=lam, Phi=Phi, V=V, BV=s.BV, alpha=zeros_m, beta=zeros_m, H=H,
+        theta=theta, Y=Y, order=order, lam_all=lam_all, eig_res=eig_res,
+        sigma=torch.tensor(sigma, dtype=dtype, device=device), niter=niter,
+        eig_res_measured=eig_res_measured)
+
+
+def block_lanczos_solve(A, B, factor, sigma, N, m, p, mode="normal",
+                        seed=12345, v0=None, deflate=None, tol=None,
+                        check_every=1, ortho="full", polish=0,
+                        polish_spare=0, sweep="exact") -> LanczosResult:
+    """Block shift-invert Lanczos: p Krylov vectors advance per factor
+    apply. ``ortho="local"`` orthogonalizes each new block against the
+    previous two only and extracts with a generalized Rayleigh-Ritz on the
+    measured Gram matrix; ``sweep="approx"`` drives the sweep with the
+    factor's inexact f32 solve and relies on ``polish`` accurate applies.
+    m is rounded up to a multiple of p. With ``tol`` set the sweep exits
+    once the N wanted pairs pass the block coupling bound (one host
+    decision per check).
+    """
+    st = _block_lanczos_setup(A, B, factor, sigma, N, m, p, mode=mode,
+                              seed=seed, v0=v0, deflate=deflate,
+                              ortho=ortho, sweep=sweep)
+    step, q, mtot, s = st.step, st.q, st.mtot, st.state
+    if tol is None:
+        for t in range(q):
+            step(t, s)
+        niter = mtot
+    else:
+        row = torch.arange(mtot, device=s.V.device)
+        min_blocks = -(-N // p) + 1
+
+        def converged(t1):
+            active = (row < t1 * p).to(s.Hc.dtype)
+            Hm = s.Hc[:mtot] * active[:, None] * active[None, :]
+            Hm = 0.5 * (Hm + Hm.T)
+            theta, Y = torch.linalg.eigh(Hm)
+            sel = torch.argsort(-theta, stable=True)[:N]
+            lo = (t1 - 1) * p
+            Rblk = s.Hc[lo + p:lo + 2 * p, lo:lo + p]
+            Ylast = Y[lo:lo + p][:, sel]
+            res = torch.sqrt(torch.sum((Rblk @ Ylast) ** 2, dim=0))
+            scale = torch.clamp(torch.max(torch.abs(theta)), min=1.0)
+            return host_bool(torch.all(res < tol * scale), "lanczos_exit")
+
+        t = 0
+        while t < q:
+            step(t, s)
+            t += 1
+            if t % check_every == 0 and t >= min_blocks and converged(t):
+                break
+        niter = t * p
+    return _block_lanczos_extract(
+        A, B, factor, sigma, N, mode, s, niter, p, tol is not None, ortho,
+        polish, polish_spare, deflate)
