@@ -1,0 +1,49 @@
+"""The two configurations of ``bench.py`` that the port drives on the card,
+and the bench objective.
+
+``bench_263k``: the 512x256 problem (263,682 DOF) of ``bench.py:77-255``.
+``bench_1m``: the 1024x512 north-star problem (1,051,650 DOF) of its big
+branch (``bench.py:80-155``): adaptive Lanczos exit, block 8, polish 2 with
+no spare, PCG stagnation exits, the approx sweep at approx_rtol and
+adjoint rtol 1e-7. Both run the V-cycle on the kernels. Nothing is cut.
+"""
+
+from __future__ import annotations
+
+import torch
+
+ADJOINT = {"maxiter": 30, "nrestart": 8, "mixed": True, "ladder": "approx"}
+
+
+def bench_263k():
+    fo = {"rtol": 1e-11, "maxiter": 60, "approx_rtol": 1e-5,
+          "approx_maxiter": 18, "sweep_rtol": 0.0, "sweep_maxiter": 24,
+          "degree": 3, "min_coarse": 4500, "stag_bad": 1000000,
+          "vcycle": "kernel"}
+    return dict(nx=512, ny=256, Lx=2.0, Ly=1.0, N=6, rfact=2.0, m=176,
+                factor_kind="mg", lanczos_tol=None, lanczos_block=16,
+                lanczos_ortho="local", lanczos_check_every=2, rtol=4e-8,
+                sigma=-1.0, factor_options=fo, lanczos_polish=3,
+                lanczos_polish_spare=8, adjoint_method="sibk",
+                adjoint_options=dict(ADJOINT), lanczos_sweep="approx")
+
+
+def bench_1m():
+    fo = {"rtol": 1e-11, "maxiter": 60, "approx_rtol": 1e-5,
+          "approx_maxiter": 18, "sweep_rtol": None, "sweep_maxiter": None,
+          "degree": 3, "min_coarse": 4500, "stag_bad": 2, "vcycle": "kernel"}
+    return dict(nx=1024, ny=512, Lx=2.0, Ly=1.0, N=6, rfact=2.0, m=176,
+                factor_kind="mg", lanczos_tol=1e-11, lanczos_block=8,
+                lanczos_ortho="local", lanczos_check_every=2, rtol=1e-7,
+                sigma=-1.0, factor_options=fo, lanczos_polish=2,
+                lanczos_polish_spare=0, adjoint_method="sibk",
+                adjoint_options=dict(ADJOINT), lanczos_sweep="approx")
+
+
+CONFIGS = {"263k": bench_263k, "1m": bench_1m}
+
+
+def tail(lam, Q):
+    """The bench objective (bench.py:268-276)."""
+    eta = torch.exp(-2.0 * (lam - lam[0]))
+    return torch.sum(torch.sqrt(lam)) + torch.sum(eta[None, :] * Q[:8] ** 2)

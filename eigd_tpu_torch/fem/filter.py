@@ -22,7 +22,7 @@ class NodeFilter:
 
     def __init__(self, conn, X, r0=1.0, ftype="conv", dvmap=None,
                  num_design_vars=None, beta=10.0, eta=0.5, projection=False,
-                 grid_shape=None, device="cpu"):
+                 grid_shape=None, device="cuda"):
         if ftype != "conv":
             raise NotImplementedError(
                 f"ftype={ftype!r}: only the uniform-grid 'conv' filter is "

@@ -26,7 +26,7 @@ def _t(a, device, dtype=None):
 
 
 def analysis_from_numpy(x, X, conn, dvmap, num_design_vars, kernel,
-                        grid_shape, r0, device="cpu", projection=False,
+                        grid_shape, r0, device="cuda", projection=False,
                         beta=10.0, eta=0.5, **config):
     """A ``TopologyAnalysis`` on the given state.
 
@@ -47,7 +47,7 @@ def analysis_from_numpy(x, X, conn, dvmap, num_design_vars, kernel,
 
 
 def stencil_operator_from_numpy(W, mats, dofs, n, grid_shape, ndof,
-                                device="cpu"):
+                                device="cuda"):
     """A ``GridStencilOperator`` from its stencil W (X, Y, 3, 3, ndof,
     ndof), element matrices and DOF map (either may be None)."""
     return GridStencilOperator(_t(mats, device),
@@ -56,7 +56,7 @@ def stencil_operator_from_numpy(W, mats, dofs, n, grid_shape, ndof,
 
 
 def mg_factor_from_numpy(Ws, dinvs, lmaxs, coarse_inv, W64, shapes, ndof,
-                         device="cpu", **options):
+                         device="cuda", **options):
     """A ``GridMGFactor`` holding a built hierarchy: level stencils, Jacobi
     inverses, lambda_max values, the dense coarse inverse and the f64 fine
     stencil. ``options`` are the factor's keyword fields (rtol, maxiter,

@@ -37,7 +37,7 @@ class TopologyAnalysis:
                  lanczos_check_every=1, uniform_grid=True,
                  factor_options=None, lanczos_polish=0,
                  lanczos_polish_spare=0, lanczos_sweep="exact",
-                 kernel_mv="auto", device="cpu"):
+                 kernel_mv="auto", device="cuda"):
         if factor_kind != "mg" or grid_shape is None:
             raise NotImplementedError(
                 f"factor_kind={factor_kind!r}: only the multigrid factor on "
@@ -171,7 +171,7 @@ class TopologyAnalysis:
 
 
 def make_model(nx=128, ny=64, Lx=1.0, Ly=1.0, rfact=4.0, N=10, Mx=3, My=3,
-               ns=2, device="cpu", **kwargs):
+               ns=2, device="cuda", **kwargs):
     """Symmetric optimization model factory (the JAX ``make_model``)."""
     from ..fem.filter import NodeFilter
     from ..fem.model import make_grid, make_symmetric_dvmap_with_sets

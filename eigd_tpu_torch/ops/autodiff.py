@@ -12,6 +12,10 @@ the repeated-eigenvalue correction and chains the matrix cotangents into
 theta by ``torch.autograd.grad`` of the bilinear forms
 sum_i w_i^T A(theta) phi_i over a fresh, plain assembly. So no kernel is
 ever inside the autograd graph, and the kernels need no backward.
+
+Forward mode (``eigh_gen_tangent``, ``staged_jvp``) is the counterpart of
+``eigd_tpu/ops/autodiff.py:391-540``: the tangent solves the adjoint's
+projected systems with the operator tangents as right-hand sides.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import dataclasses
 from typing import Callable
 
 import torch
+from torch.profiler import record_function
 
 from . import adjoint as adj
 from .lanczos import b_orthonormalize_rows, block_lanczos_solve
@@ -184,3 +189,109 @@ def eigh_gen(theta, problem: EigProblem, cfg: EighGenConfig):
     """N smallest eigenpairs of A(theta) phi = lam B(theta) phi, with the
     adjoint backward pass."""
     return EighGen.apply(theta, problem, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Forward mode: the tangent of the eigensolve
+# ---------------------------------------------------------------------------
+
+
+def eigh_gen_tangent(theta, dtheta, problem, cfg, fwd=None):
+    """Forward-mode tangent of ``eigh_gen`` along dtheta (normal mode).
+
+    Counterpart of ``eigd_tpu/ops/autodiff.py:391-485``. With B-orthonormal
+    eigenvectors and W_i = (dA - lam_i dB) phi_i:
+
+      dlam_i = phi_i^T W_i
+      dphi_i = v_i + sum_j c_ij phi_j
+
+    where v_i solves the projected singular system (A - lam_i B) v_i =
+    -(I - B Phi Phi^T) W_i, the same systems as the adjoint, by the
+    configured adjoint method with W as the right-hand side; the distinct
+    solved-pair couplings (phi_j^T W_i)/(lam_i - lam_j) fold into v_i there,
+    and inside numerically repeated clusters (and on the diagonal) the
+    coupling is -1/2 phi_j^T dB phi_i. ``fwd``, if given, is the forward
+    solve ``(A, B, res, factor)`` to reuse (``staged_jvp``). Nothing here is
+    recorded by autograd.
+
+    Returns (lam, Phi, dlam, dPhi).
+    """
+    if cfg.mode != "normal":
+        raise NotImplementedError(
+            f"mode={cfg.mode!r}: only the normal-mode tangent is ported "
+            "(ROADMAP queue 1, item 14 lists buckling)")
+    with torch.no_grad():
+        if fwd is None:
+            A, B = problem.assemble(theta)
+            A, B, res, factor = _forward_ops(theta, problem, A, B, cfg)
+        else:
+            A, B, res, factor = fwd
+        lam, Phi = res.lam, res.Phi
+
+    # dA Phi and dB Phi by forward-mode AD of the plain assembly applied to
+    # the solved eigenvectors (mv is linear in the assembled data).
+    # torch.func.jvp, because every op of the assembly has a forward-AD
+    # formula, the stencil build's in-place slice adds included; the
+    # double-vjp form would run the assembly's backward twice for nothing.
+    def apply_both(th):
+        A2, B2 = problem.assemble(th)
+        return A2.mv(Phi), B2.mv(Phi)
+
+    with record_function("eigh_gen_tangent.operators"):
+        _, (dAP, dBP) = torch.func.jvp(apply_both, (theta.detach(),),
+                                       (dtheta.detach(),))
+
+    with torch.no_grad():
+        W = dAP - dBP * lam[None, :]  # W[:, i] = (dA - lam_i dB) phi_i
+        dlam = torch.sum(Phi * W, dim=0)
+        # pcpg and pgmres are not ported (ROADMAP queue 1, item 12): like
+        # the JAX code for any other method, they fall back to sibk
+        method = "laa" if cfg.adjoint_method == "laa" else "sibk"
+        with record_function("eigh_gen_tangent.laa"):
+            psi0 = adj.laa(W, B, factor, res, b_ortho=True, mode=cfg.mode,
+                           approx=cfg.adjoint_mixed and method == "sibk")
+        with record_function(f"eigh_gen_tangent.{method}"):
+            if method == "laa":
+                psi, _ = adj.generate_adjoint_correction(
+                    lam, Phi, psi0, Phib=W, eig_atol=cfg.eig_atol,
+                    mode=cfg.mode)
+            else:
+                psi, _, _ = adj.sibk(
+                    W, A, B, lam, Phi, mode=cfg.mode, psi=psi0,
+                    sigma=res.sigma, factor=factor, rtol=cfg.adjoint_rtol,
+                    eig_atol=cfg.eig_atol, maxiter=cfg.adjoint_maxiter,
+                    nrestart=cfg.nrestart, mixed=cfg.adjoint_mixed,
+                    ladder=cfg.adjoint_ladder)
+        # the repeated-cluster and diagonal part the projected solve cannot
+        # carry: the symmetric -dB/2 coupling
+        dBG = Phi.T @ dBP
+        close = torch.abs(lam[:, None] - lam[None, :]) < cfg.eig_atol
+        Cd = torch.where(close, -0.5 * dBG, 0.0)
+        dPhi = psi + Phi @ Cd
+    return lam, Phi, dlam, dPhi
+
+
+def staged_jvp(pre, tail, problem: EigProblem, cfg: EighGenConfig):
+    """Directional derivative of ``x -> tail(eigh_gen(pre(x)))`` by forward
+    mode: the jvp-vs-vjp oracle of the 1M-DOF problem.
+
+    Counterpart of ``eigd_tpu/ops/autodiff.py:496-540``. The forward
+    eigensolve runs once and its (A, B, res, factor) feed the tangent
+    solve; both modes share the primal solve, so |jvp - g.p| isolates
+    solver and derivation error with no FD step. Returns
+    ``fn(x, p) -> (value, dvalue)``. Its stages are ``torch.profiler``
+    ranges (``staged_jvp.*``, ``eigh_gen_tangent.*``).
+    """
+    def fn(x, p):
+        with torch.no_grad(), record_function("staged_jvp.forward"):
+            theta = pre(x)
+            A, B = problem.assemble(theta)
+            fwd = _forward_ops(theta, problem, A, B, cfg)
+        with record_function("staged_jvp.pre"):
+            theta, dtheta = torch.func.jvp(pre, (x,), (p,))
+        lam, Phi, dlam, dPhi = eigh_gen_tangent(theta, dtheta, problem, cfg,
+                                                fwd=fwd)
+        with record_function("staged_jvp.tail"):
+            return torch.func.jvp(tail, (lam, Phi), (dlam, dPhi))
+
+    return fn

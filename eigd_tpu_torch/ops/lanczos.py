@@ -17,7 +17,7 @@ import types
 import torch
 
 from .collective import chunked_dot_f32, pdot
-from .sync import host_bool
+from .sync import host_bool, loop_exit
 
 
 def _normal_mode_only(mode):
@@ -102,9 +102,15 @@ def b_orthonormalize_rows(U0, B_mv):
 def b_qr_tall(X, B_mv):
     """B-orthonormal thin QR of an (n, p) block by column-scaled
     CholeskyQR2 in the B inner product. Returns (Q, BQ, R) with
-    Q^T B Q = I and X = Q R."""
+    Q^T B Q = I and X = Q R.
+
+    The (n, p) block is solved against L^T from the right as it lies: the
+    left-sided solve of JAX on its (p, n) transpose is the same triangular
+    solve, but torch's CUDA one takes 5-9 s at n = 1,051,650, p = 8 on an
+    H100, contiguous or not, where the right-sided one takes 0.2-0.4 ms
+    (``python -m eigd_tpu_torch.diag.profile triangular``)."""
     def solve_cols(L, Z):
-        return torch.linalg.solve_triangular(L, Z.T, upper=False).T
+        return torch.linalg.solve_triangular(L.T, Z, upper=True, left=False)
 
     def one_pass(X, BX):
         G = X.T @ BX
@@ -374,7 +380,7 @@ def block_lanczos_solve(A, B, factor, sigma, N, m, p, mode="normal",
     factor's inexact f32 solve and relies on ``polish`` accurate applies.
     m is rounded up to a multiple of p. With ``tol`` set the sweep exits
     once the N wanted pairs pass the block coupling bound (one host
-    decision per check).
+    decision per check; ``sync.LOOP_EXITS`` counts which way it ended).
     """
     st = _block_lanczos_setup(A, B, factor, sigma, N, m, p, mode=mode,
                               seed=seed, v0=v0, deflate=deflate,
@@ -406,7 +412,10 @@ def block_lanczos_solve(A, B, factor, sigma, N, m, p, mode="normal",
             step(t, s)
             t += 1
             if t % check_every == 0 and t >= min_blocks and converged(t):
+                loop_exit("lanczos_exit", "converged", t)
                 break
+        else:
+            loop_exit("lanczos_exit", "last_block", t)
         niter = t * p
     return _block_lanczos_extract(
         A, B, factor, sigma, N, mode, s, niter, p, tol is not None, ortho,

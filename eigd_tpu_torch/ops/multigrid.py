@@ -19,7 +19,8 @@ miscompile and are not ported.
 
 The factor is used inside the eigh_gen forward and adjoint solves (never
 differentiated through). The PCG loops exit on data-dependent conditions,
-each a host decision (``sync.host_bool``).
+each a host decision (``sync.host_flags``); every exit is counted by its
+reason (``sync.loop_exit``).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch
 
 from . import cuda_stencil
 from .stencil import stencil_matvec
-from .sync import host_bool
+from .sync import host_flags, loop_exit
 
 
 # ---------------------------------------------------------------------------
@@ -422,6 +423,16 @@ class GridMGFactor:
 
     # -- PCG solvers ----------------------------------------------------------
 
+    def _pcg_exit(self, r2, tol2, bad, site):
+        """The PCG loop's decision, from one host wait: None to go on,
+        "converged" when every column is under tol2, "stagnated" after
+        ``stag_bad`` iterations without a 10% gain."""
+        unconverged, fresh = host_flags(
+            torch.stack([torch.any(r2 > tol2), bad < self.stag_bad]), site)
+        if unconverged and fresh:
+            return None
+        return "stagnated" if unconverged else "converged"
+
     def _pcg(self, bb, matvec, rtol, maxiter, x0=None):
         """Flexible PCG; residuals/updates in bb.dtype, preconditioner f32.
 
@@ -456,8 +467,10 @@ class GridMGFactor:
         bad = torch.zeros((), dtype=torch.int64, device=bb.device)
         site = "pcg_f64" if dtype == torch.float64 else "pcg_f32"
         k = 0
-        while k < maxiter and host_bool(torch.any(r2 > tol2)
-                                        & (bad < self.stag_bad), site):
+        while k < maxiter:
+            why = self._pcg_exit(r2, tol2, bad, site)
+            if why:
+                break
             Ap = matvec(p)
             pAp = torch.sum(p * Ap, dim=0)
             active = (r2 > tol2).to(dtype)
@@ -479,6 +492,9 @@ class GridMGFactor:
             best = torch.minimum(best, torch.sum(r2))
             r, rz = r_new, rz_new
             k += 1
+        else:
+            why = "maxiter"
+        loop_exit(site, why, k)
         return x, {"niter": k, "res2": r2, "tol2": tol2}
 
     def _pcg_planes(self, bb, rtol, maxiter):
@@ -517,9 +533,10 @@ class GridMGFactor:
         best = torch.sum(r2)
         bad = torch.zeros((), dtype=torch.int64, device=bb.device)
         k = 0
-        while k < maxiter and host_bool(torch.any(r2 > tol2)
-                                        & (bad < self.stag_bad),
-                                        "pcg_f32_planes"):
+        while k < maxiter:
+            why = self._pcg_exit(r2, tol2, bad, "pcg_f32_planes")
+            if why:
+                break
             Ap = mv(p)
             pAp = col_sum(p, Ap)
             active = (r2 > tol2).to(torch.float32)
@@ -539,6 +556,9 @@ class GridMGFactor:
             best = torch.minimum(best, torch.sum(r2))
             r, rz = r_new, rz_new
             k += 1
+        else:
+            why = "maxiter"
+        loop_exit("pcg_f32_planes", why, k)
         return (cuda_stencil.from_planes(x, nx, ny, nd),
                 {"niter": k, "res2": r2, "tol2": tol2})
 

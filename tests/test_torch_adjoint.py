@@ -57,11 +57,12 @@ def solved():
                  deflate=j_bortho(jnp.asarray(U0), Bj.mv), ortho="local",
                  polish=1)
     At, Bt = (stencil_operator_from_numpy(np.asarray(o.W), None, None, n,
-                                          (NX, NY), 2) for o in (Aj, Bj))
+                                          (NX, NY), 2, device="cpu")
+              for o in (Aj, Bj))
     ft = mg_factor_from_numpy(
         [np.asarray(w) for w in fj.Ws], [np.asarray(d) for d in fj.dinvs],
         [float(v) for v in fj.lmaxs], np.asarray(fj.coarse_inv),
-        np.asarray(fj.W64), fj.shapes, 2, approx_rtol=1e-5,
+        np.asarray(fj.W64), fj.shapes, 2, device="cpu", approx_rtol=1e-5,
         approx_maxiter=18)
     rt = LanczosResult(**{f: t(getattr(rj, f)) for f in (
         "lam", "Phi", "V", "BV", "alpha", "beta", "H", "theta", "Y", "order",

@@ -82,7 +82,7 @@ def test_element_matrices():
 
     nx, ny = 8, 4
     topo = make_model(nx=nx, ny=ny, Lx=2.0, Ly=1.0, rfact=2.0, N=2, m=32,
-                      factor_kind="mg", lanczos_block=4)
+                      factor_kind="mg", lanczos_block=4, device="cpu")
     m = jmodel.make_grid(nx, ny, 2.0, 1.0)
     conn = jnp.asarray(m.conn)
     Be, He, detJ = j_tables(jnp.asarray(m.X), conn)
@@ -120,7 +120,7 @@ def test_conv_filter_apply_and_gradient(projection):
               num_design_vars=ndv, grid_shape=(nx, ny),
               projection=projection, beta=8.0)
     jf = JNodeFilter(m.conn, m.X, **kw)
-    tf = TNodeFilter(m.conn, m.X, **kw)
+    tf = TNodeFilter(m.conn, m.X, device="cpu", **kw)
     assert rel(tf._kernel.numpy(), jf._kernel) < TOL
     rng = np.random.default_rng(5)
     x = rng.uniform(0.2, 1.0, ndv)

@@ -71,7 +71,8 @@ def test_block_lanczos_matches(pencil, ortho):
                  deflate=j_bortho(jnp.asarray(U0), Bj.mv), **kw)
 
     At, Bt = (stencil_operator_from_numpy(np.asarray(o.W), None, None, o.n,
-                                          (NX, NY), 2) for o in (Aj, Bj))
+                                          (NX, NY), 2, device="cpu")
+              for o in (Aj, Bj))
     ft = TFactor.build(At.W - SIGMA * Bt.W, (NX, NY), 2, min_coarse=64)
     rt = t_solve(At, Bt, ft, SIGMA, N, 64, P, v0=torch.as_tensor(v0),
                  deflate=t_bortho(torch.as_tensor(U0), Bt.mv), **kw)

@@ -48,7 +48,8 @@ def carried(jfac, **kw):
     return mg_factor_from_numpy(
         [np.asarray(w) for w in jfac.Ws], [np.asarray(d) for d in jfac.dinvs],
         [float(v) for v in jfac.lmaxs], np.asarray(jfac.coarse_inv),
-        np.asarray(jfac.W64), jfac.shapes, 2, rtol=jfac.rtol, **kw)
+        np.asarray(jfac.W64), jfac.shapes, 2, device="cpu", rtol=jfac.rtol,
+        **kw)
 
 
 def test_build_levels_match(problem):

@@ -18,7 +18,8 @@ import pytest
 import torch
 
 from eigd_tpu.models.natural_frequency import make_model as j_make_model
-from eigd_tpu_torch.interop import analysis_from_numpy
+from eigd_tpu_torch.interop import (analysis_from_numpy, mg_factor_from_numpy,
+                                    stencil_operator_from_numpy)
 from eigd_tpu_torch.models.natural_frequency import make_model as t_make_model
 from eigd_tpu_torch.ops import cuda_stencil, sync
 
@@ -60,7 +61,7 @@ def t_model(sweep="exact", kernel_mv="on", jax_topo=None, **over):
         kw["adjoint_options"] = MIXED
     kw.update(over)
     if jax_topo is None:
-        topo = t_make_model(**kw)
+        topo = t_make_model(device="cpu", **kw)
     else:
         f = jax_topo.fltr
         for name in ("nx", "ny", "Lx", "Ly", "rfact"):
@@ -69,7 +70,7 @@ def t_model(sweep="exact", kernel_mv="on", jax_topo=None, **over):
             np.asarray(jax_topo.x), np.asarray(jax_topo.X),
             np.asarray(jax_topo.conn), np.asarray(f.dvmap),
             f.num_design_vars, np.asarray(f._kernel), f.grid_shape, f.r0,
-            **kw)
+            device="cpu", **kw)
     topo.problem = dataclasses.replace(topo.problem,
                                        v0=lambda th: torch.as_tensor(V0))
     return topo
@@ -91,10 +92,50 @@ def t_value_and_grad(topo):
 
 def test_port_imports_no_jax():
     code = ("import sys; import eigd_tpu_torch, eigd_tpu_torch.interop, "
-            "eigd_tpu_torch.models.natural_frequency; "
-            "assert 'jax' not in sys.modules, 'jax imported'")
+            "eigd_tpu_torch.models.natural_frequency, "
+            "eigd_tpu_torch.ops.autodiff, eigd_tpu_torch.ops.cuda_probes, "
+            "eigd_tpu_torch.diag.common, eigd_tpu_torch.diag.stencil_floor, "
+            "eigd_tpu_torch.diag.stencil_dma, eigd_tpu_torch.diag.profile, "
+            "eigd_tpu_torch.diag.build_time, chip_smoke; "
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'eigd_tpu.')) or m == 'eigd_tpu']; "
+            "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
+
+
+@pytest.mark.parametrize("entry", ["make_model", "analysis_from_numpy",
+                                   "stencil_operator_from_numpy",
+                                   "mg_factor_from_numpy"])
+def test_entry_points_default_to_the_card(entry):
+    """With no device given, an entry point builds on the card: on a
+    machine without one it fails on the first CUDA allocation and never
+    returns a CPU object."""
+    jt = j_make_model(nx=4, ny=2, N=2, m=16, Lx=2.0, Ly=1.0, rfact=2.0,
+                      factor_kind="mg", lanczos_block=4)
+    f = jt.fltr
+    W = np.random.default_rng(0).standard_normal((5, 3, 3, 3, 2, 2))
+    calls = {
+        "make_model": lambda: t_make_model(nx=4, ny=2, N=2, m=16,
+                                           lanczos_block=4),
+        "analysis_from_numpy": lambda: analysis_from_numpy(
+            np.asarray(jt.x), np.asarray(jt.X), np.asarray(jt.conn),
+            np.asarray(f.dvmap), f.num_design_vars, np.asarray(f._kernel),
+            f.grid_shape, f.r0, N=2, m=16, lanczos_block=4),
+        "stencil_operator_from_numpy": lambda: stencil_operator_from_numpy(
+            W, None, None, 30, (4, 2), 2),
+        "mg_factor_from_numpy": lambda: mg_factor_from_numpy(
+            [W], [np.ones(30)], [1.0], np.eye(30), W, [(4, 2)], 2),
+    }
+    if torch.cuda.is_available():
+        obj = calls[entry]()
+        t = getattr(obj, "x", None)
+        t = getattr(obj, "W", None) if t is None else t
+        t = obj.Ws[0] if t is None else t
+        assert t.device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            calls[entry]()
 
 
 # Bounds: "exact" solves every factor apply to rtol 1e-13, so the two

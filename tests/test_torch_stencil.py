@@ -65,6 +65,26 @@ def test_stencil_from_elements_and_matvec_f64(ndof):
                j_matvec(Wj, jnp.asarray(x[:, 0]), nx, ny, ndof)) < 1e-13
 
 
+@pytest.mark.parametrize("ndof", [1, 2])
+def test_stencil_csr_matches_jax_matvec(ndof):
+    """The CSR form of the stencil (the SpMM library yardstick of K1/K2
+    in chip_smoke.py) against eigd_tpu's stencil matvec: f64 at 1e-13,
+    9*ndof nonzeros per interior row."""
+    from eigd_tpu_torch.diag.common import stencil_csr
+
+    nx, ny = 16, 8
+    mats, _, n = element_mats(nx, ny, ndof)
+    Wj = j_from_elements(jnp.asarray(mats), nx, ny, ndof)
+    A = stencil_csr(torch.as_tensor(np.asarray(Wj)), nx, ny, ndof)
+    nodes = (nx + 1) * (ny + 1)
+    edge = 2 * (nx + 1) + 2 * (ny + 1) - 4
+    assert A.values().numel() <= 9 * ndof * ndof * nodes
+    assert A.values().numel() >= 9 * ndof * ndof * (nodes - edge)
+    x = np.random.default_rng(2).standard_normal((n, 3))
+    assert rel(torch.sparse.mm(A, torch.as_tensor(x)).numpy(),
+               j_matvec(Wj, jnp.asarray(x), nx, ny, ndof)) < 1e-13
+
+
 def test_stencil_matvec_f32():
     """f32 at 1e-5 * max|ref|: f32 rounding of both sides."""
     nx, ny = 16, 8
