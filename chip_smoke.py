@@ -6,8 +6,11 @@ stencils and the K3/K4 floor probes), checks each against its plain
 PyTorch twin at the shapes its path gives it, times each beside its bound
 and, where one PyTorch call computes the same function, that call (SpMM
 for the stencils, ``copy_``, ``einsum`` or ``add`` for the probes),
-checks the kernel-on gradient against the kernel-off one on a small
-problem, and then drives three paths:
+checks K1 and K2 in both layouts on ragged grids at the edges of the
+stencil kernel's tiles and column chunks, prints K1's host time per call
+beside its device time (``[K1 host]``, ``diag/stencil_host.py``), checks
+the kernel-on gradient against the kernel-off one on a small problem, and
+then drives three paths:
 
 * the 512x256 natural-frequency problem (263,682 DOF, N=6) of
   ``bench.py``: value and adjoint gradient of its eta-weighted objective,
@@ -55,7 +58,7 @@ def phase_build():
     _build.load()
     log(f"[build] {so.name} in {time.perf_counter() - t0:.1f} s")
     for line in blog.splitlines():
-        if "ptxas" in line or "nvcc" in line:
+        if "ptxas" in line or "nvcc" in line or "spill" in line:
             log(f"[build] {line.strip()}")
 
 
@@ -162,13 +165,82 @@ def phase_stencils(topo, fine_ks, coarse_ks, k2_ks, gen, extra=()):
 
 
 def random_stencils(gen):
-    """Random stencils at grids no path has, ndof 1 and 2."""
-    cases = []
-    for nx, ny, nd in ((32, 16, 1), (100, 70, 2), (100, 70, 1)):
-        W = torch.randn((nx + 1, ny + 1, 3, 3, nd, nd), generator=gen,
-                        dtype=torch.float64).cuda()
-        cases += [(W, nx, ny, nd, k) for k in (1, 8)]
-    return cases
+    """Random stencils at grids no path has, ndof 1 and 2: (timed, ragged)
+    cases. The ragged grids have 1 and 2 nodes a side, or one node under,
+    at and over the kernel's 8 x 32 tile; their k cross its 4-column
+    chunks and its column groups."""
+    def case(nx, ny, nd, k):
+        return (torch.randn((nx + 1, ny + 1, 3, 3, nd, nd), generator=gen,
+                            dtype=torch.float64).cuda(), nx, ny, nd, k)
+
+    timed = [case(nx, ny, nd, k) for nx, ny, nd in
+             ((32, 16, 1), (100, 70, 2), (100, 70, 1)) for k in (1, 8)]
+    ragged = [case(nx, ny, nd, k)
+              for nx, ny in ((0, 0), (1, 1), (6, 30), (7, 31), (8, 32),
+                             (6, 32), (8, 30))
+              for nd in (1, 2) for k in (1, 3, 5, 17)]
+    return timed, ragged
+
+
+def ragged_row(W, nx, ny, nd, k, gen):
+    """K1 (planes, contiguous and sliced; vector layout) and K2 (vector
+    layout, contiguous and transposed) against their twins: 1e-5 of
+    max|ref| in f32, 1e-13 of 18 max|x| max|W| in f64. Returns the largest
+    error over its bound."""
+    from eigd_tpu_torch.ops import cuda_stencil as cs
+    from eigd_tpu_torch.ops.stencil import stencil_matvec
+
+    X, Y = nx + 1, ny + 1
+    n = X * Y * nd
+    Wp, Wp64 = cs.stencil_planes(W, nd), cs.stencil_planes(W, nd,
+                                                           torch.float64)
+    x = torch.randn((n, k), generator=gen, dtype=torch.float64).cuda()
+    xt = torch.randn((k, n), generator=gen, dtype=torch.float64).cuda().T
+    big = torch.randn((nd, k + 2, X, Y + 3), generator=gen).cuda()
+    xs = big[:, 1:k + 1, :, 2:Y + 2]
+    pairs = []
+    for xq in (cs.to_planes(x.float(), nx, ny, nd), xs):
+        ref = cs.matvec_planes_ref(Wp, xq, nx, ny, nd)
+        pairs.append((cs.matvec_planes(Wp, xq, nx, ny, nd), ref,
+                      1e-5 * float(ref.abs().max())))
+    ref = stencil_matvec(W.float(), x.float(), nx, ny, nd)
+    pairs.append((cs.stencil_matvec32(Wp, x.float(), nx, ny, nd), ref,
+                   1e-5 * float(ref.abs().max())))
+    for xv in (x, xt):
+        pairs.append((cs.stencil_matvec64(Wp64, xv, nx, ny, nd),
+                      stencil_matvec(W, xv.contiguous(), nx, ny, nd),
+                      1e-13 * 18 * float(xv.abs().max())
+                      * float(W.abs().max())))
+    torch.cuda.synchronize()
+    return max(float((got - ref).abs().max()) / tol
+               for got, ref, tol in pairs)
+
+
+def phase_ragged(cases, gen):
+    """Every ragged case through ragged_row; one line, fails on any."""
+    worst = 0.0
+    for case in cases:
+        r = ragged_row(*case, gen)
+        W, nx, ny, nd, k = case
+        check(r <= 1.0, f"K1/K2 disagree at {nx + 1}x{ny + 1} ndof {nd} "
+                        f"k {k} (error {r:.2f} of its bound)")
+        worst = max(worst, r)
+    log(f"[ragged] K1 planes (contiguous, sliced), K1 vector, K2 vector "
+        f"(contiguous, transposed) on {len(cases)} ragged cases: largest "
+        f"error {worst:.3f} of its bound")
+
+
+def phase_host():
+    """K1's host time per call beside its device time at the smallest and
+    the finest 263k grids, k 16 (diag/stencil_host.py)."""
+    from eigd_tpu_torch.diag.stencil_host import k1_host
+
+    rows = k1_host(((64, 32), (512, 256)))
+    log("[K1 host] " + "; ".join(
+        f"{r['name'][10:]}: host {r['host_us']:.1f} us/call, device "
+        f"{r['ms'] * 1e3:.1f} us (SpMM host {r['spmm_host_us']:.1f} us, "
+        f"device {r['spmm_ms'] * 1e3:.1f} us)" for r in rows))
+    return {r["name"][10:]: r["host_us"] for r in rows}
 
 
 def phase_probes():
@@ -388,8 +460,10 @@ def main():
     phase_build()
     topo = make_model(device="cuda", **bench_263k())
     gen = torch.Generator().manual_seed(0)
-    s263 = phase_stencils(topo, (1, 16), (1, 16), (1, 6, 16), gen,
-                          random_stencils(gen))
+    timed, ragged = random_stencils(gen)
+    s263 = phase_stencils(topo, (1, 16), (1, 16), (1, 6, 16), gen, timed)
+    phase_ragged(ragged, gen)
+    host = phase_host()
     probe_rows, probe_launches = phase_probes()
     phase_on_off()
     l263 = phase_main(topo, gpu)
@@ -408,7 +482,8 @@ def main():
                      "eigd_tpu/ops/pallas_stencil.py:121", l1m["K1"],
                      s263["K1 513x257 ndof 2 k 16"],
                      launches_by_path={"263k": l263["K1"], "1m": l1m["K1"]},
-                     at_1m={k: s1m["K1 1025x513 ndof 2 k 8"][k] for k in at}),
+                     at_1m={k: s1m["K1 1025x513 ndof 2 k 8"][k] for k in at},
+                     host_us_per_call=host),
         kernel_entry("K2 f64 9-point block-stencil matvec (513x257, ndof 2, "
                      "k 16)", "eigd_tpu_torch/csrc/stencil.cu",
                      "eigd_tpu/ops/pallas_stencil.py:299", l1m["K2"],

@@ -108,8 +108,8 @@ def load():
         lib = ctypes.CDLL(str(so))
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         sigs = {
-            "eigd_stencil_f32": [ptr] * 3 + [i32] * 12 + [ptr],
-            "eigd_stencil_f64": [ptr] * 3 + [i32] * 12 + [ptr],
+            "eigd_stencil_f32": [ptr] * 3 + [i32] * 14 + [ptr],
+            "eigd_stencil_f64": [ptr] * 3 + [i32] * 14 + [ptr],
             "eigd_probe_floor": [i32] + [ptr] * 5 + [i32] * 4 + [i64] * 2
                                 + [ptr],
             "eigd_probe_dma": [ptr] * 3 + [i32, ptr, i32, ptr] + [i32] * 3

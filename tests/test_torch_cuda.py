@@ -31,35 +31,46 @@ def require_cuda():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
 
 
+# grids (X, Y) of 1 and 2 nodes a side, one node under, at and over the
+# kernel's 8 x 32 tile in each direction, one that is no multiple of it,
+# and one of more tiles than FILL_BLOCKS, one node over a tile each way
+# (its blocks take all k columns, in several chunks)
+GRIDS = [(1, 1), (2, 2), (7, 31), (8, 32), (9, 33), (7, 33), (9, 31),
+         (41, 24), (137, 513)]
+
+
+# k 40: more columns than one chunk of the vector layout holds
+@pytest.mark.parametrize("k", [1, 3, 5, 8, 16, 17, 40])
 @pytest.mark.parametrize("ndof", [1, 2])
-def test_kernels_match_twins(ndof):
-    """K1 (plane and vector layouts, 1e-5 of max|ref|) and K2 (1e-13 of
-    18 max|x| max|W|) on a grid that is no multiple of the block size,
-    including a non-contiguous input."""
+@pytest.mark.parametrize("X,Y", GRIDS)
+def test_kernels_match_twins(X, Y, ndof, k):
+    """K1 on the plane layout (contiguous and sliced x) and on the vector
+    layout, 1e-5 of max|ref|; K2 on the vector layout (contiguous and
+    transposed x), 1e-13 of 18 max|x| max|W|; at the edges of the tiles,
+    of the 4-column chunks and of the column groups."""
     require_cuda()
-    nx, ny = 40, 23
-    g = torch.Generator().manual_seed(ndof)
-    W = torch.randn((nx + 1, ny + 1, 3, 3, ndof, ndof), generator=g,
+    nx, ny = X - 1, Y - 1
+    g = torch.Generator().manual_seed(1000 * X + 10 * k + ndof)
+    W = torch.randn((X, Y, 3, 3, ndof, ndof), generator=g,
                     dtype=torch.float64).cuda()
-    n = (nx + 1) * (ny + 1) * ndof
+    n = X * Y * ndof
     Wp, Wp64 = cs.stencil_planes(W, ndof), cs.stencil_planes(
         W, ndof, torch.float64)
-    for k in (1, 5):
-        x = torch.randn((n, k), generator=g, dtype=torch.float64).cuda()
-        xq = cs.to_planes(x.float(), nx, ny, ndof)
+    x = torch.randn((n, k), generator=g, dtype=torch.float64).cuda()
+    big = torch.randn((ndof, k + 2, X, Y + 3), generator=g).cuda()
+    for xq in (cs.to_planes(x.float(), nx, ny, ndof),
+               big[:, 1:k + 1, :, 2:Y + 2]):
         ref = cs.matvec_planes_ref(Wp, xq, nx, ny, ndof)
         got = cs.matvec_planes(Wp, xq, nx, ny, ndof)
         assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
-        ref = stencil_matvec(W.float(), x.float(), nx, ny, ndof)
-        got = cs.stencil_matvec32(Wp, x.float(), nx, ny, ndof)
-        assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
-        bound = 1e-13 * 18 * x.abs().max() * W.abs().max()
-        ref = stencil_matvec(W, x, nx, ny, ndof)
-        got = cs.stencil_matvec64(Wp64, x, nx, ny, ndof)
-        assert (got - ref).abs().max() <= bound
-        xt = torch.randn((k, n), generator=g, dtype=torch.float64).cuda().T
-        got = cs.stencil_matvec64(Wp64, xt, nx, ny, ndof)
-        ref = stencil_matvec(W, xt.contiguous(), nx, ny, ndof)
+    ref = stencil_matvec(W.float(), x.float(), nx, ny, ndof)
+    got = cs.stencil_matvec32(Wp, x.float(), nx, ny, ndof)
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+    xt = torch.randn((k, n), generator=g, dtype=torch.float64).cuda().T
+    for xv in (x, xt):
+        bound = 1e-13 * 18 * xv.abs().max() * W.abs().max()
+        ref = stencil_matvec(W, xv.contiguous(), nx, ny, ndof)
+        got = cs.stencil_matvec64(Wp64, xv, nx, ny, ndof)
         assert (got - ref).abs().max() <= bound
 
 

@@ -96,7 +96,8 @@ def test_port_imports_no_jax():
             "eigd_tpu_torch.ops.autodiff, eigd_tpu_torch.ops.cuda_probes, "
             "eigd_tpu_torch.diag.common, eigd_tpu_torch.diag.stencil_floor, "
             "eigd_tpu_torch.diag.stencil_dma, eigd_tpu_torch.diag.profile, "
-            "eigd_tpu_torch.diag.build_time, chip_smoke; "
+            "eigd_tpu_torch.diag.build_time, "
+            "eigd_tpu_torch.diag.stencil_host, chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'eigd_tpu.')) or m == 'eigd_tpu']; "
             "assert not bad, bad")

@@ -6,6 +6,8 @@ runs them. The CUDA kernels themselves run only on a card
 their plain twins.
 """
 
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -211,3 +213,47 @@ def test_element_operator_matvec():
                          torch.as_tensor(dofs, dtype=torch.int64), n)
     assert rel(op.mv(torch.as_tensor(x)).numpy(), ref) < 1e-13
     assert rel(op.mv(torch.as_tensor(x[:, 1])).numpy(), ref[:, 1]) < 1e-13
+
+
+@pytest.mark.parametrize("nx,ny,levels", [(512, 256, 4), (1024, 512, 5)])
+def test_launch_plan_covers_every_node_and_column_once(nx, ny, levels):
+    """The stencil kernel's launch plan at every multigrid level of the
+    263k and 1M paths (eigd_tpu_torch/diag/configs.py), ndof 1 and 2, f32
+    and f64, with and without staged y, k 1 to 17: its node tiles, column
+    groups and chunks cover every node and column exactly once with no
+    empty block, and one block's shared memory stays within the budget of
+    two blocks an SM (half the card's 227 KB a block)."""
+    TX, TY = cs.TILE
+    for lvl in range(levels):
+        X, Y = (nx >> lvl) + 1, (ny >> lvl) + 1
+        for nd, itemsize, staged, k in itertools.product(
+                (1, 2), (4, 8), (True, False), range(1, 18)):
+            plan = cs.launch_plan(X, Y, nd, k, itemsize, staged)
+            tiles, groups = plan.grid
+            ti, tj = -(-X // TX), -(-Y // TY)
+            assert tiles == ti * tj
+            # tile t covers rows [t // tj * TX, +TX) and columns
+            # [t % tj * TY, +TY) of the grid, clipped at its edge
+            rows, cols, ks = np.zeros(X, int), np.zeros(Y, int), np.zeros(
+                k, int)
+            for t in range(ti):
+                assert t * TX < X
+                rows[t * TX:(t + 1) * TX] += 1
+            for t in range(tj):
+                assert t * TY < Y
+                cols[t * TY:(t + 1) * TY] += 1
+            cpg, kc = plan.cols_per_group, plan.cols_per_chunk
+            assert 1 <= kc <= cpg
+            for grp in range(groups):
+                assert grp * cpg < k
+                for c0 in range(grp * cpg, min(k, (grp + 1) * cpg), kc):
+                    ks[c0:min(c0 + kc, (grp + 1) * cpg)] += 1
+            assert (rows == 1).all() and (cols == 1).all()
+            assert (ks == 1).all()
+            assert plan.shared_bytes <= cs.SHARED_BUDGET <= 232448 // 2
+            # a grid of few tiles splits its columns to fill the card, as
+            # far as its k allows
+            assert tiles * groups >= min(cs.FILL_BLOCKS, tiles * k)
+            if staged and tiles >= cs.FILL_BLOCKS:
+                # the vector layout takes a block's columns in one chunk
+                assert kc == cpg == k
