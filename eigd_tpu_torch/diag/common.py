@@ -10,6 +10,7 @@ over the rate of their type.
 
 from __future__ import annotations
 
+import statistics
 import subprocess
 import sys
 
@@ -49,6 +50,43 @@ def cuda_time_ms(fn, warmup=3, iters=20):
     return t0.elapsed_time(t1) / iters
 
 
+def graph_ms(fns, iters=20, windows=5):
+    """Device time in ms of each function of ``fns``, with the host taken
+    out: ``iters`` calls of each are captured once in a
+    ``torch.cuda.CUDAGraph`` (launches through ctypes take the current
+    stream, which is the capture stream), and each graph is replayed
+    ``windows`` times between two CUDA events, the functions in turns
+    (A B B A A B ... for two). Returns (median, least, largest) time a
+    call over the windows, for each function."""
+    graphs = []
+    for fn in fns:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(iters):
+                fn()
+        g.replay()
+        graphs.append(g)
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    times = [[] for _ in fns]
+    order = list(range(len(fns)))
+    for w in range(windows):
+        for i in order if w % 2 == 0 else order[::-1]:
+            t0.record()
+            graphs[i].replay()
+            t1.record()
+            t1.synchronize()
+            times[i].append(t0.elapsed_time(t1) / iters)
+    return [(statistics.median(t), min(t), max(t)) for t in times]
+
+
 def bound(nbytes, flops, dtype=torch.float32):
     """(least time in ms, "bytes" or "operations") for the given work."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -65,12 +103,52 @@ def result(name, ms, plain_ms, library_ms, nbytes, flops,
             "bound_ms": b_ms, "bound_by": b_by}
 
 
+def timed(name, kernel, plain, library, nbytes, flops, dtype=torch.float32,
+          library_in_graph=True):
+    """A ``result`` timed with the host taken out: ``ms`` and
+    ``library_ms`` are the medians of ``graph_ms`` over the kernel and the
+    library call in turns (``*_range``: least and largest window), beside
+    their back-to-back event times (``event_ms``, ``library_event_ms``,
+    by ``cuda_time_ms``) and the plain twin's. ``library`` may be None; a
+    library call that is not ``library_in_graph`` is timed by events
+    only."""
+    event_ms = cuda_time_ms(kernel)
+    plain_ms = cuda_time_ms(plain)
+    lib_event = None if library is None else cuda_time_ms(library)
+    graphed = [kernel] + ([library] if library and library_in_graph else [])
+    g = graph_ms(graphed)
+    lib_ms, lib_range = lib_event, None
+    if len(g) == 2:
+        lib_ms, lib_range = g[1][0], g[1][1:]
+    return dict(result(name, g[0][0], plain_ms, lib_ms, nbytes, flops,
+                       dtype),
+                ms_range=g[0][1:], event_ms=event_ms,
+                library_range=lib_range, library_event_ms=lib_event)
+
+
+def _ms(value, rng=None, events=None):
+    """A time, with its graph range and its event time where kept."""
+    out = f"{value:.4f} ms"
+    if rng is not None:
+        out += f" [{rng[0]:.4f}-{rng[1]:.4f}]"
+    if events is not None:
+        out += f" (events {events:.4f})"
+    return out
+
+
 def line(r):
     """One printed line of a ``result``: time, effective rate, bound and
-    its share of the time, plain twin and library times."""
-    lib = ("none" if r["library_ms"] is None
-           else f"{r['library_ms']:.4f} ms")
-    return (f"[{r['name']}] {r['ms']:.4f} ms  "
+    its share of the time, plain twin and library times. A ``timed``
+    result shows the graph-replayed median with its range, then the
+    back-to-back event time."""
+    if r["library_ms"] is None:
+        lib = "none"
+    elif r.get("library_range") is not None:
+        lib = _ms(r["library_ms"], r["library_range"], r["library_event_ms"])
+    else:
+        lib = _ms(r["library_ms"]) + (" by events" if "event_ms" in r else "")
+    ms = _ms(r["ms"], r.get("ms_range"), r.get("event_ms"))
+    return (f"[{r['name']}] {ms}  "
             f"{r['bytes'] / r['ms'] / 1e6:.0f} GB/s  bound "
             f"{r['bound_ms'] * 1e3:.1f} us by {r['bound_by']} "
             f"({r['bytes'] / 1e6:.1f} MB, share {r['bound_ms'] / r['ms']:.2f})"

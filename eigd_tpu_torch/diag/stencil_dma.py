@@ -8,7 +8,9 @@ slabs (16, 1040, Yx) and W (36, 1040, Yw) per layout from
 slab; 1 slab + W's plane 0; 3 slabs + W's plane 0, per layout), each
 beside its bound, its plain twin and, where one PyTorch call computes the
 same function, that call (``Tensor.copy_`` of the window for 1 slab, one
-broadcast ``torch.add`` for 1 slab + W).
+broadcast ``torch.add`` for 1 slab + W). Kernel and library are timed as
+in ``stencil_floor``: events around back-to-back calls, and the median of
+graph replays in turns.
 
 The TPU probe moved all 36 W planes into VMEM for each block while its
 body reads plane 0; the Hopper kernel reads only plane 0, and the bound
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 
 from ..ops import cuda_probes as cp
-from .common import card, cuda_time_ms, line, require_cuda, result
+from .common import card, line, require_cuda, timed
 
 C, R, NT = 16, 1040, 36
 LAYOUTS = ((515, 513, 513, "unaligned"), (640, 640, 640, "aligned 640"))
@@ -55,24 +57,24 @@ def cases(inputs):
 
 
 def run(inputs=None):
-    """Time the six K4 cases; returns one dict per line printed."""
+    """Time the six K4 cases; returns one dict per case line printed."""
     inp = make_inputs() if inputs is None else inputs
     rows = []
     for name, slabs, W, Yo, with_w in cases(inp):
         args = (slabs, W, Yo, with_w)
-        ms = cuda_time_ms(lambda: cp.dma_probe(*args))
-        plain = cuda_time_ms(lambda: cp.dma_probe_ref(*args))
         out = torch.empty((C, R, Yo), device=slabs[0].device)
         lib = None
         if len(slabs) == 1 and not with_w:
-            lib = cuda_time_ms(lambda: out.copy_(slabs[0][:, :, :Yo]))
+            lib = lambda: out.copy_(slabs[0][:, :, :Yo])  # noqa: E731
         elif len(slabs) == 1:
-            lib = cuda_time_ms(lambda: torch.add(
-                slabs[0][:, :, :Yo], W[0, :, :Yo][None], out=out))
+            lib = lambda: torch.add(  # noqa: E731
+                slabs[0][:, :, :Yo], W[0, :, :Yo][None], out=out)
         # the slab windows, W's plane 0 window when read, and the output
         nbytes = 4 * R * Yo * (C * len(slabs) + int(with_w) + C)
         flops = C * R * Yo * (len(slabs) - 1 + int(with_w))
-        rows.append(result(name, ms, plain, lib, nbytes, flops))
+        rows.append(timed(name, lambda: cp.dma_probe(*args),
+                          lambda: cp.dma_probe_ref(*args), lib, nbytes,
+                          flops))
     for r in rows:
         print(line(r), flush=True)
     return rows

@@ -13,6 +13,14 @@ call that computes the same function: ``Tensor.copy_`` for ``copy``, one
 ``noshift9`` (the three slabs as one strided view of their buffer), and
 ``torch.sparse.mm`` on the stencil as a CSR matrix for K1.
 
+Each kernel and library call is timed twice: by events around 20
+back-to-back calls (``cuda_time_ms``, as in earlier runs, which includes
+the host's pace), and with the host taken out, as the median of five
+replays of a CUDA graph of 20 calls, kernel and library in turns
+(``graph_ms``); the second is the device time. SpMM is timed by events
+only. The last line is K1's time split at 1M by the graph medians: copy,
+onetap, noshift9, K1.
+
 The script's R = 1040 rows are its TX=16 tile padding of 1025; the kernels
 take any R, and run at the script's 1040 so the bytes are the script's.
 
@@ -28,8 +36,8 @@ import torch
 
 from ..ops import cuda_probes as cp
 from ..ops import cuda_stencil as cs
-from .common import (card, cuda_time_ms, line, require_cuda, result,
-                     stencil_csr, stencil_work)
+from .common import (card, line, require_cuda, stencil_csr, stencil_work,
+                     timed)
 
 NX, NY, NDOF, K, TX = 1024, 512, 2, 8, 16
 
@@ -85,7 +93,7 @@ def library_call(kind, W, x_m1, x_0, ndof, k):
 
 def run(inputs=None):
     """Time the three K3 bodies and the full K1 (checked against its
-    twin); returns one dict per line printed."""
+    twin); returns one dict per kernel line printed."""
     inp = make_inputs() if inputs is None else inputs
     x_m1, x_0, x_p1 = inp["slabs"]
     W = inp["W"]
@@ -93,15 +101,14 @@ def run(inputs=None):
     rows = []
     for kind in cp.FLOOR_KINDS:
         args = (kind, W, x_m1, x_0, x_p1, NDOF, K)
-        ms = cuda_time_ms(lambda: cp.floor_variant(*args))
-        plain = cuda_time_ms(lambda: cp.floor_variant_ref(*args))
         lib = library_call(kind, W, x_m1, x_0, NDOF, K)
         ref = cp.floor_variant_ref(*args)
         err = float((lib().reshape(ref.shape) - ref).abs().max())
         check(err <= 1e-5 * float(ref.abs().max()),
               f"the library call of K3 {kind} computes another function")
-        rows.append(result(f"K3 {kind}", ms, plain, cuda_time_ms(lib),
-                           *probe_work(kind, R, Y)))
+        rows.append(timed(f"K3 {kind}", lambda: cp.floor_variant(*args),
+                          lambda: cp.floor_variant_ref(*args), lib,
+                          *probe_work(kind, R, Y)))
 
     Wp = cs.stencil_planes(inp["W64"], NDOF)
     xq = inp["xq"]
@@ -110,16 +117,20 @@ def run(inputs=None):
     err = float((got - ref).abs().max())
     check(err <= 1e-5 * float(ref.abs().max()),
           "K1 disagrees with its twin at 1025x513")
-    ms = cuda_time_ms(lambda: cs.matvec_planes(Wp, xq, NX, NY, NDOF))
-    plain = cuda_time_ms(lambda: cs.matvec_planes_ref(Wp, xq, NX, NY, NDOF))
     A = stencil_csr(inp["W64"], NX, NY, NDOF, torch.float32)
     xv = cs.from_planes(xq, NX, NY, NDOF).contiguous()
-    lib = cuda_time_ms(lambda: torch.sparse.mm(A, xv))
-    rows.append(dict(result(f"K1 full {NX + 1}x{NY + 1} k {K}", ms, plain,
-                            lib, *stencil_work(NX + 1, NY + 1, NDOF, K, 4)),
-                     max_abs_err=err))
+    rows.append(dict(timed(
+        f"K1 full {NX + 1}x{NY + 1} k {K}",
+        lambda: cs.matvec_planes(Wp, xq, NX, NY, NDOF),
+        lambda: cs.matvec_planes_ref(Wp, xq, NX, NY, NDOF),
+        lambda: torch.sparse.mm(A, xv),
+        *stencil_work(NX + 1, NY + 1, NDOF, K, 4), library_in_graph=False),
+        max_abs_err=err))
     for r in rows:
         print(line(r), flush=True)
+    print("[K1 split at 1M] graph medians: " + " / ".join(
+        f"{r['name'].split()[1].replace('full', 'K1')} {r['ms']:.4f}"
+        for r in rows) + " ms", flush=True)
     return rows
 
 

@@ -110,10 +110,10 @@ def load():
         sigs = {
             "eigd_stencil_f32": [ptr] * 3 + [i32] * 14 + [ptr],
             "eigd_stencil_f64": [ptr] * 3 + [i32] * 14 + [ptr],
-            "eigd_probe_floor": [i32] + [ptr] * 5 + [i32] * 4 + [i64] * 2
-                                + [ptr],
-            "eigd_probe_dma": [ptr] * 3 + [i32, ptr, i32, ptr] + [i32] * 3
-                              + [i64] * 3 + [ptr],
+            "eigd_probe_rows": [ptr] * 3 + [i32, ptr, ptr] + [i32] * 3
+                               + [i64] * 3 + [i32] * 3 + [ptr],
+            "eigd_probe_taps": [i32] + [ptr] * 5 + [i32] * 4 + [i64] * 2
+                               + [ptr],
         }
         for name, args in sigs.items():
             fn = getattr(lib, name)

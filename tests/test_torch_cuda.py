@@ -96,31 +96,55 @@ def test_kernel_path_gradient_matches_plain():
     assert rel <= 1e-9
 
 
-@pytest.mark.parametrize("ndof", [1, 2])
-def test_probes_match_twins(ndof):
-    """K3 (every body; copy exact, the sums 1e-5 of max|ref|) with the
-    three slabs as row offsets into one padded buffer, and K4 (1 and 3
-    slabs, with and without W) on shapes that are no multiple of a block."""
+# (slab width, output width) of the probe tests: every residue mod 4 of
+# both, 16-byte rows with an aligned output (36, 32), the real unaligned
+# layout (515, 513) and the aligned one (640, 640); K3 takes Y = slab
+# width - 2
+PROBE_WIDTHS = [(31, 29), (32, 30), (33, 31), (34, 32), (36, 32),
+                (515, 513), (640, 640)]
+
+
+def at_offset(shape, off, g):
+    """A random contiguous CUDA tensor of ``shape`` at a storage offset of
+    ``off`` floats."""
+    n = int(np.prod(shape))
+    return torch.randn(off + n, generator=g, device="cuda")[off:].view(shape)
+
+
+@pytest.mark.parametrize("ndof,k", [(nd, k) for nd in (1, 2)
+                                    for k in (1, 3, 8, 16)])
+@pytest.mark.parametrize("off", [0, 1, 2, 3])
+@pytest.mark.parametrize("Yx,Yo", PROBE_WIDTHS)
+@pytest.mark.parametrize("R", [1, 37, 1040])
+def test_probes_match_twins(R, Yx, Yo, off, ndof, k):
+    """K3 (every body, its slabs row offsets into one padded buffer) and
+    K4 (1 and 3 slabs, with and without W), every operand at a storage
+    offset of ``off`` floats (16-byte aligned rows move quads, others go
+    through the staged store): K3 copy and K4 exact, the K3 sums 1e-5 of
+    max|ref|; each call launches once."""
     require_cuda()
-    g = torch.Generator().manual_seed(10 + ndof)
-    k, R, Y = 3, 37, 29
-    C = ndof * k
-    xpad = torch.randn((C, R + 2, Y + 2), generator=g).cuda()
-    W = torch.randn((9 * ndof * ndof, R, Y), generator=g).cuda()
+    g = torch.Generator(device="cuda").manual_seed(
+        100000 * R + 100 * Yx + 10 * off + 2 * k + ndof)
+    C, Y = ndof * k, Yx - 2
+    xpad = at_offset((C, R + 2, Yx), off, g)
+    W = at_offset((9 * ndof * ndof, R, Y), off, g)
     slabs = [xpad[:, d:d + R] for d in range(3)]
     for kind in cp.FLOOR_KINDS:
+        ref = cp.floor_variant_ref(kind, W, *slabs, ndof, k)
+        tol = 0.0 if kind == "copy" else 1e-5 * float(ref.abs().max())
         n = cp.K3_LAUNCHES
         got = cp.floor_variant(kind, W, *slabs, ndof, k)
-        ref = cp.floor_variant_ref(kind, W, *slabs, ndof, k)
         assert cp.K3_LAUNCHES == n + 1
-        tol = 0.0 if kind == "copy" else 1e-5 * float(ref.abs().max())
         assert float((got - ref).abs().max()) <= tol
-    xs = [torch.randn((C, R, Y + 2), generator=g).cuda() for _ in range(3)]
+    xs = [at_offset((C, R, Yx), off, g) for _ in range(3)]
+    W4 = at_offset((2, R, Yx), off, g)
     for n_slabs in (1, 3):
         for with_w in (False, True):
-            got = cp.dma_probe(xs[:n_slabs], W, Y, with_w)
-            ref = cp.dma_probe_ref(xs[:n_slabs], W, Y, with_w)
-            assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+            n = cp.K4_LAUNCHES
+            got = cp.dma_probe(xs[:n_slabs], W4, Yo, with_w)
+            assert cp.K4_LAUNCHES == n + 1
+            assert torch.equal(got, cp.dma_probe_ref(xs[:n_slabs], W4, Yo,
+                                                     with_w))
 
 
 def test_tangent_on_card_matches_cpu():

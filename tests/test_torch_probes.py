@@ -15,6 +15,7 @@ of max|ref|, as on the card.
 
 import functools
 import importlib
+import itertools
 from pathlib import Path
 
 import jax
@@ -110,3 +111,54 @@ def test_dma_probe_matches_pallas(interpret, n_slabs, with_w, Yx, Yw, Yo):
     assert cuda_probes.K4_LAUNCHES == launches
     assert got.shape == ref.shape == (C, XR, Yo)
     assert np.abs(got - ref).max() <= 1e-6 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("R", [1, 37, 1040])
+def test_row_plan_covers_every_output_once(R):
+    """rows_kernel's launch plan (K4 and K3 copy) at the shapes of
+    tests/test_torch_cuda.py::test_probes_match_twins and of the diag entry
+    points, aligned (quads) or not: its row blocks and channels cover
+    every (channel, row) once with no empty block; its
+    passes cover every unit of a row once, each pass non-empty, within
+    PER_MAX units a lane; and the staged store of unaligned rows, as
+    csrc/probes.cu computes it from the output offset mod 4, splits a pass
+    into a head and a tail of at most 3 elements and quads 16-byte aligned
+    in the output and in the warp's staging row (32*PER_MAX + 4 floats)."""
+    widths = [29, 30, 31, 32, 513, 515, 640]
+    for Yo, C, vec in itertools.product(widths, (1, 3, 16, 32),
+                                        (False, True)):
+        if vec and Yo % 4:
+            continue
+        plan = cuda_probes.row_plan(C, R, Yo, vec)
+        blocks, chans = plan.grid
+        assert chans == C
+        rows = (np.arange(blocks)[:, None] * cuda_probes.ROW_WARPS
+                + np.arange(cuda_probes.ROW_WARPS)[None, :]).ravel()
+        rows = rows[rows < R]
+        assert np.array_equal(rows, np.arange(R))
+        assert (blocks - 1) * cuda_probes.ROW_WARPS < R
+        assert plan.vec == vec
+        per_max = cuda_probes.PER_MAX[vec]
+        assert 1 <= plan.per <= per_max
+        n = Yo // 4 if vec else Yo
+        seen = np.zeros(n, int)
+        span = 32 * plan.per
+        for q in range(plan.passes):
+            base = q * span
+            lim = min(span, n - base)
+            assert lim > 0
+            u = (np.arange(per_max)[:, None] * 32
+                 + np.arange(32)[None, :]).ravel()
+            seen[base + u[u < lim]] += 1
+            if vec:
+                continue
+            for sh in range(4):  # the pass's first output mod 4
+                # lanes < head and lanes < lim - tail store an element
+                # each, the lanes stride over the nq quads between
+                head = min(lim, (4 - sh) & 3)
+                nq = (lim - head) // 4
+                tail = head + 4 * nq
+                assert 0 <= head <= 3 and 0 <= lim - tail <= 3
+                assert nq == 0 or (sh + head) % 4 == 0
+                assert sh + lim <= 32 * per_max + 4
+        assert (seen == 1).all()
