@@ -19,6 +19,14 @@ then drives three paths:
   1M-DOF stencil shapes, each kernel and library call timed by events and
   by graph-replayed medians (``diag.common.graph_ms``), with the probe
   kernels' targets printed as held or missed (``[probe target]``);
+* the natural-frequency optimisation protocol on the same 263k model
+  (``[minfreq]``): ``MinFreqOpt``'s initialize / initialize_adjoint /
+  finalize_adjoint and ``add_check_adjoint_residual``, K1 and K2 counted,
+  ``xb`` held against a Richardson central difference of the KS value;
+* the dense entry points (``[dense]``): ``eigh_gen_dense`` gradients with
+  the sibk, pcpg and pgmres adjoints against ``eigh_gen_oracle`` (n 80
+  and n 2,000, cuSOLVER's Cholesky and eigh on the path), and
+  ``MinFreqOpt.test_ks_func`` on the dense 16x8 and 32x16 models;
 * the 1024x512 north-star problem (1,051,650 DOF) of ``bench.py``'s big
   branch: K1 and K2 against their twins on its operators, value and
   gradient, forward-mode ``staged_jvp`` against the reverse-mode
@@ -34,6 +42,7 @@ The last line of standard output is the JSON contract line
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import sys
 import time
@@ -427,6 +436,183 @@ def phase_main(topo, gpu):
     return launches
 
 
+def sync_device(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_minfreq(topo, gpu):
+    """MinFreqOpt's three-phase protocol on the main path's model, then
+    add_check_adjoint_residual, with the K1/K2 launches of the four calls;
+    xb against a Richardson-4 central difference of the KS value along
+    the bench direction (h = 3e-2, 1.5e-2; bound 1e-4 as in [main])."""
+    from eigd_tpu_torch.models.natural_frequency import MinFreqOpt
+    from eigd_tpu_torch.ops import cuda_stencil as cs
+    from eigd_tpu_torch.ops import sync
+
+    opt = MinFreqOpt(topo)
+    cs.K1_LAUNCHES = cs.K2_LAUNCHES = 0
+    counts = {}
+
+    def counted(name, fn):
+        sync.clear()
+        k1, k2 = cs.K1_LAUNCHES, cs.K2_LAUNCHES
+        out = fn()
+        counts[name] = (f"K1 {cs.K1_LAUNCHES - k1}, K2 {cs.K2_LAUNCHES - k2},"
+                        f" syncs {dict(sync.HOST_SYNCS)}, exits "
+                        f"{dict(sync.LOOP_EXITS)}")
+        return out
+
+    counted("initialize", opt.initialize)
+    opt.initialize_adjoint()
+    counted("finalize_adjoint", opt.finalize_adjoint)
+    t0 = time.perf_counter()
+    r = counted("add_check_adjoint_residual", topo.add_check_adjoint_residual)
+    sync_device(topo.device)
+    t_check = time.perf_counter() - t0
+    launches = {"K1": cs.K1_LAUNCHES, "K2": cs.K2_LAUNCHES}
+    prof = topo.profile
+    for name, what in counts.items():
+        log(f"[minfreq] {name}: {what}")
+    ks = float(opt.get_min_frequency())
+    log(f"[minfreq] {topo.nvars} DOF  KS min frequency {ks!r}  "
+        f"frequencies {prof['natural frequencies']}")
+    log(f"[minfreq] initialize {prof['eigenvalue solve time']:.3f} s  "
+        f"finalize_adjoint {prof['adjoint solution time']:.3f} s  "
+        f"add_check_adjoint_residual {t_check:.3f} s  K1 launches "
+        f"{launches['K1']}  K2 launches {launches['K2']}  on {gpu}")
+    scale = float(torch.sqrt(torch.max(torch.sum(topo.Qb**2, dim=0))))
+    log(f"[minfreq] adjoint residual norms {r.tolist()} (||Qb|| {scale:.3e})"
+        f"  orthogonality "
+        f"{[prof[f'adjoint ortho[{i:2d}]'] for i in range(topo.N)]}")
+    log(f"[minfreq] iterations: eigensolve {prof['eigensolve iterations']}  "
+        f"adjoint {prof['adjoint iterations']}  factor apply "
+        f"{prof.get('factor apply iterations')} (final res2 "
+        f"{prof.get('factor apply final res2', float('nan')):.3e}, tol2 "
+        f"{prof.get('factor apply tol2', float('nan')):.3e})  relative "
+        f"adjoint residuals {prof['adjoint residuals']}")
+    check(min(launches.values()) > 0, "[minfreq] launched no K1 or K2")
+    check(bool(torch.isfinite(topo.xb).all()), "[minfreq] xb not finite")
+    check(float(r.max()) <= 1e-6 * scale,
+          "[minfreq] the adjoint equations are not solved")
+
+    pert = bench_direction(topo)
+    ans = float(pert @ topo.xb)
+    x0 = topo.x
+    fds = {}
+    for h in (3e-2, 1.5e-2):
+        vals = []
+        for sgn in (1.0, -1.0):
+            topo.x = x0 + sgn * h * pert
+            opt.initialize()
+            vals.append(float(opt.get_min_frequency()))
+        fds[h] = (vals[0] - vals[1]) / (2 * h)
+    topo.x = x0
+    fd4 = (4.0 * fds[1.5e-2] - fds[3e-2]) / 3.0
+    rel = abs(ans - fd4) / abs(fd4)
+    log(f"[minfreq] FD check: adjoint {ans!r} richardson-4 {fd4!r} rel "
+        f"{rel:.3e} (bound 1e-4)")
+    check(rel <= 1e-4, "[minfreq] xb fails the FD check")
+    # a second protocol at x0, its process warm
+    times = []
+    for _ in range(2):
+        opt.initialize()
+        opt.initialize_adjoint()
+        counted("finalize_adjoint (again)", opt.finalize_adjoint)
+        times.append((prof["eigenvalue solve time"],
+                      prof["adjoint solution time"]))
+    log(f"[minfreq] again at x0: (initialize, finalize_adjoint) {times} s; "
+        f"last finalize_adjoint: {counts['finalize_adjoint (again)']}")
+    return launches
+
+
+def make_pencil(n, seed=0):
+    """The pencil of tests/test_adjoint.py: eigenvalues 1..10^1.5 then
+    100-300, congruent to a B near the identity."""
+    rng = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    low = np.arange(1.0, 11.0) ** 1.5
+    w = np.concatenate([low, np.linspace(100.0, 300.0, n - len(low))])
+    A = Q @ np.diag(w) @ Q.T
+    Bm = rng.standard_normal((n, n)) * 0.05
+    Bm = Bm @ Bm.T + np.eye(n)
+    L = np.linalg.cholesky(Bm)
+    A = L @ A @ L.T
+    return 0.5 * (A + A.T), Bm
+
+
+def dense_gradients(n, N, m, device):
+    """The tests/test_adjoint.py objective sum(log lam) + sum(Phi[:7]^2) of
+    (A0 + diag x, B0 + 0.02 diag x): the gradient through eigh_gen_dense
+    with each exact adjoint against eigh_gen_oracle's. Returns {method:
+    (relative gap, seconds)} and the oracle's seconds."""
+    from eigd_tpu_torch.ops.autodiff import (EighGenConfig, eigh_gen_dense,
+                                             eigh_gen_oracle)
+
+    A0, B0 = (torch.as_tensor(a, device=device)
+              for a in make_pencil(n, seed=3))
+    x0 = torch.as_tensor(0.05 * np.random.default_rng(4).standard_normal(n),
+                         device=device)
+
+    def grad(fn):
+        x = x0.clone().requires_grad_(True)
+        sync_device(device)
+        t0 = time.perf_counter()
+        lam, Phi = fn(A0 + torch.diag(x), B0 + 0.02 * torch.diag(x))
+        (torch.sum(torch.log(lam)) + torch.sum(Phi[:7] ** 2)).backward()
+        sync_device(device)
+        return x.grad, time.perf_counter() - t0
+
+    go, t_oracle = grad(lambda A, B: eigh_gen_oracle(A, B, N))
+    out = {}
+    for method in ("sibk", "pcpg", "pgmres"):
+        cfg = EighGenConfig(N=N, m=m, sigma=0.0, adjoint_method=method,
+                            adjoint_maxiter=60)
+        g, sec = grad(lambda A, B: eigh_gen_dense(A, B, cfg))
+        out[method] = (float((g - go).abs().max() / go.abs().max()), sec)
+    return out, t_oracle
+
+
+def phase_dense(gpu, device="cuda", ks_grid=(16, 8), example_grid=(32, 16)):
+    """The dense entry points: eigh_gen_dense against the oracle (n 80,
+    N 4, m 55 as tests/test_adjoint.py, and n 2,000, N 6; bound 1e-8),
+    MinFreqOpt.test_ks_func on the dense model of
+    tests/test_natural_frequency.py (16x8, N 6; bound 1e-6) and the fd_err
+    of examples/natural_frequency.py's model (32x16, printed)."""
+    from eigd_tpu_torch.models.natural_frequency import MinFreqOpt, make_model
+
+    for n, N in ((80, 4), (2000, 6)):
+        out, t_oracle = dense_gradients(n, N, 55, device)
+        for method, (gap, sec) in out.items():
+            log(f"[dense] n {n} N {N} {method}: gradient vs oracle rel "
+                f"{gap:.3e} (bound 1e-8), {sec:.3f} s (oracle "
+                f"{t_oracle:.3f} s) on {gpu}")
+            check(gap <= 1e-8, f"[dense] {method} gradient disagrees with "
+                               f"the oracle at n {n}")
+
+    np.random.seed(0)
+    nx, ny = ks_grid
+    topo = make_model(nx=nx, ny=ny, Lx=2.0, Ly=1.0, N=6, rfact=2.0,
+                      device=device)
+    t0 = time.perf_counter()
+    data = MinFreqOpt(topo).test_ks_func(dh_fd=1e-6)
+    log(f"[dense] test_ks_func {nx}x{ny} ({topo.nvars} DOF): fd_err "
+        f"{data['fd_err']:.3e} (bound 1e-6) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    check(data["fd_err"] <= 1e-6, "[dense] test_ks_func fails its bound")
+
+    np.random.seed(0)
+    nx, ny = example_grid
+    topo = make_model(nx=nx, ny=ny, Lx=2.0, Ly=1.0, N=6,
+                      factor_kind="dense", device=device)
+    t0 = time.perf_counter()
+    data = MinFreqOpt(topo).test_ks_func()
+    log(f"[dense] examples/natural_frequency.py model {nx}x{ny} "
+        f"({topo.nvars} DOF, sibk, dense): fd_err {data['fd_err']:.3e} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    check(np.isfinite(data["fd_err"]), "[dense] example fd_err not finite")
+
+
 def phase_1m(gpu, gen):
     """The 1,051,650-DOF problem: K1 and K2 against their twins on its
     operators; value and gradient, forward mode against reverse mode
@@ -438,9 +624,11 @@ def phase_1m(gpu, gen):
     from eigd_tpu_torch.models.natural_frequency import make_model
     from eigd_tpu_torch.ops.autodiff import staged_jvp
 
+    before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     topo = make_model(device="cuda", **bench_1m())
-    log(f"[1m] model built in {time.perf_counter() - t0:.2f} s")
+    log(f"[1m] model built in {time.perf_counter() - t0:.2f} s "
+        f"({before / 2**30:.3f} GiB allocated before it)")
     rows = phase_stencils(topo, (1, 6, 8, 16), (8,), (1, 6, 8, 16), gen)
     g, val, launches = evaluate(topo, gpu, "1m")
     pert = bench_direction(topo)
@@ -501,8 +689,13 @@ def main():
     probe_rows, probe_launches = phase_probes()
     phase_on_off()
     l263 = phase_main(topo, gpu)
+    lmf = phase_minfreq(topo, gpu)
+    # the model is a reference cycle (its EigProblem holds its bound
+    # methods): collect it before the 1M phase measures its peak
     del topo
+    gc.collect()
     torch.cuda.empty_cache()
+    phase_dense(gpu)
     l1m, s1m = phase_1m(gpu, gen)
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
@@ -515,14 +708,16 @@ def main():
                      "k 16)", "eigd_tpu_torch/csrc/stencil.cu",
                      "eigd_tpu/ops/pallas_stencil.py:121", l1m["K1"],
                      s263["K1 513x257 ndof 2 k 16"],
-                     launches_by_path={"263k": l263["K1"], "1m": l1m["K1"]},
+                     launches_by_path={"263k": l263["K1"], "1m": l1m["K1"],
+                                       "minfreq": lmf["K1"]},
                      at_1m={k: s1m["K1 1025x513 ndof 2 k 8"][k] for k in at},
                      host_us_per_call=host),
         kernel_entry("K2 f64 9-point block-stencil matvec (513x257, ndof 2, "
                      "k 16)", "eigd_tpu_torch/csrc/stencil.cu",
                      "eigd_tpu/ops/pallas_stencil.py:299", l1m["K2"],
                      s263["K2 513x257 ndof 2 k 16"],
-                     launches_by_path={"263k": l263["K2"], "1m": l1m["K2"]},
+                     launches_by_path={"263k": l263["K2"], "1m": l1m["K2"],
+                                       "minfreq": lmf["K2"]},
                      at_1m={k: s1m["K2 1025x513 ndof 2 k 6"][k] for k in at}),
         kernel_entry("K3 stencil floor probe (noshift9; 1040x513, C 16)",
                      "eigd_tpu_torch/csrc/probes.cu",

@@ -18,10 +18,16 @@ disable it, and import it at their first call); its cost alone is timed
 in a fresh interpreter.
 ``triangular`` times the forms of ``lanczos.b_qr_tall``'s column solve on
 the 1M-DOF block (1,051,650 x 8).
+``minfreq:<size>`` runs ``MinFreqOpt``'s protocol (initialize,
+initialize_adjoint, finalize_adjoint) three times after one warm
+evaluation, as chip_smoke's ``[minfreq]`` does, the first
+``finalize_adjoint`` under ``torch.profiler``: the wall time of each call,
+and the host ops and kernels that hold the first one longest.
 
 Run on a machine with a CUDA device, from the root of the repository:
 
-    python -m eigd_tpu_torch.diag.profile 263k 1m tangent:1m triangular
+    python -m eigd_tpu_torch.diag.profile 263k 1m tangent:1m triangular \
+        minfreq:263k
 """
 
 from __future__ import annotations
@@ -162,6 +168,44 @@ def tangent(size, top=12):
               flush=True)
 
 
+def minfreq(size, top=12):
+    """Where the protocol's calls spend their time; the first
+    finalize_adjoint profiled."""
+    from ..models.natural_frequency import MinFreqOpt
+
+    topo = make_model(device="cuda", **CONFIGS[size]())
+    evaluate(topo)  # warm, as chip_smoke's [main]
+    opt = MinFreqOpt(topo)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for i in range(3):
+        opt.initialize()
+        opt.initialize_adjoint()
+        if i == 0:
+            with torch.profiler.profile(activities=acts) as prof:
+                opt.finalize_adjoint()
+        else:
+            opt.finalize_adjoint()
+        print(f"[minfreq {size}] protocol {i + 1}: initialize "
+              f"{topo.profile['eigenvalue solve time']:.3f} s  "
+              f"finalize_adjoint {topo.profile['adjoint solution time']:.3f}"
+              f" s{' (profiled)' if i == 0 else ''}", flush=True)
+    events = prof.key_averages()
+    rows = sorted((e for e in events
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    for e in rows[:top]:
+        print(f"[minfreq {size}]   op {e.key[:60]}: self host "
+              f"{e.self_cpu_time_total / 1e3:.1f} ms x{e.count}", flush=True)
+    kernels = sorted((e for e in events
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+    for e in kernels[:top]:
+        print(f"[minfreq {size}]   kernel {e.key[:80]}: "
+              f"{e.self_device_time_total / 1e3:.1f} ms x{e.count}",
+              flush=True)
+
+
 def triangular(n=1_051_650, p=8):
     """The column solve of ``b_qr_tall`` (X L^-T for an (n, p) block X
     and a p x p lower-triangular L) in each of its forms, by CUDA events."""
@@ -198,6 +242,8 @@ def main(argv=None):
             triangular()
         elif w.startswith("tangent:"):
             tangent(w.split(":", 1)[1])
+        elif w.startswith("minfreq:"):
+            minfreq(w.split(":", 1)[1])
         else:
             profile(w)
 

@@ -1,14 +1,19 @@
-"""Material interpolation, DOF maps and element densities.
+"""Material interpolation, DOF maps, plane-stress assembly and element
+densities.
 
-Counterpart of ``eigd_tpu/fem/assembly.py:28-64,157``: the pieces of the
-assembly that the uniform-grid natural-frequency model uses. Every function
-is a plain differentiable tensor function, so the eigh_gen backward pass
-chains through it with ``torch.autograd``.
+Counterpart of ``eigd_tpu/fem/assembly.py:28-104,157``: the pieces of the
+assembly that the natural-frequency model uses, including the general
+per-element stiffness and mass matrices of a non-uniform mesh. Every
+function is a plain differentiable tensor function, so the eigh_gen
+backward pass chains through it with ``torch.autograd``. The buckling and
+thermal builders wait for their slices (ROADMAP queue 1, items 13-14).
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..ops.operators import ElementOperator
 
 
 def stiffness_interp(rhoE, ptype="simp", p=3.0, q=5.0, rho0=1e-6):
@@ -48,6 +53,28 @@ def element_dof_map(conn):
     var[:, 0::2] = 2 * conn
     var[:, 1::2] = 2 * conn + 1
     return var
+
+
+def stiffness_matrix(rhoE, Be, detJ, dofs, nvars, C0, ptype="simp", p=3.0,
+                     q=5.0, rho0=1e-6):
+    """K(rhoE) as an ElementOperator:
+    Ke = sum_q detJ_q Be_q^T (c(rhoE) C0) Be_q, with Be (nq, nelems, 3, 8)
+    and detJ (nq, nelems)."""
+    c = stiffness_interp(rhoE, ptype=ptype, p=p, q=q, rho0=rho0)
+    CB = torch.einsum("ik,qekl->qeil", C0, Be)  # (nq, ne, 3, 8)
+    w = c[None, :] * detJ  # (nq, ne)
+    Ke = torch.einsum("qeij,qeil->ejl", Be, CB * w[:, :, None, None])
+    return ElementOperator(Ke, dofs, nvars)
+
+
+def mass_matrix(rhoE, He, detJ, dofs, nvars, ptype="linear", q=5.0,
+                rho0=1e-9, density=1.0):
+    """M(rhoE) as an ElementOperator: Me = sum_q detJ_q d(rhoE) He_q^T He_q,
+    with He (nq, nelems, 2, 8)."""
+    dens = mass_interp(rhoE, ptype=ptype, q=q, rho0=rho0, density=density)
+    w = dens[None, :] * detJ  # (nq, ne)
+    Me = torch.einsum("qeij,qeil->ejl", He, He * w[:, :, None, None])
+    return ElementOperator(Me, dofs, nvars)
 
 
 def element_density(rho, conn):

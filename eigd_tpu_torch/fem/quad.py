@@ -1,8 +1,9 @@
 """Bilinear quad (Q4) element tables, batched over all elements.
 
-Counterpart of ``eigd_tpu/fem/quad.py`` (plane-stress part). Element DOF
-ordering is [ux0, uy0, ux1, uy1, ...]; the quadrature-point index is
-2*i + j over GAUSS[i], GAUSS[j].
+Counterpart of ``eigd_tpu/fem/quad.py`` (the plane-stress tables and the
+scalar tables of the Helmholtz filter). Element DOF ordering is
+[ux0, uy0, ux1, uy1, ...]; the plane-stress quadrature-point index is
+2*i + j over GAUSS[i], GAUSS[j], the scalar one 2*j + i.
 """
 
 from __future__ import annotations
@@ -83,4 +84,27 @@ def plane_stress_tables(X, conn):
         Be_list.append(Be)
         He_list.append(He)
         dJ_list.append(detJ)
+    return torch.stack(Be_list), torch.stack(He_list), torch.stack(dJ_list)
+
+
+def thermal_tables(X, conn):
+    """Quadrature tables for the scalar Q4 element (quadrature-point index
+    2*j + i).
+
+    Returns
+    -------
+    Be : (nq, nelems, 2, 4) gradient matrices
+    He : (nq, nelems, 4) interpolation vectors
+    detJ : (nq, nelems)
+    """
+    xe = X[conn, 0]
+    ye = X[conn, 1]
+    nelems = conn.shape[0]
+    Be_list, He_list, dJ_list = [], [], []
+    for j in range(2):
+        for i in range(2):
+            N, Nx, Ny, detJ = _grads(xe, ye, GAUSS[i], GAUSS[j])
+            Be_list.append(torch.stack([Nx, Ny], dim=1))
+            He_list.append(N[None, :].expand(nelems, 4))
+            dJ_list.append(detJ)
     return torch.stack(Be_list), torch.stack(He_list), torch.stack(dJ_list)

@@ -16,6 +16,7 @@ import torch
 
 from .fem.filter import NodeFilter
 from .models.natural_frequency import TopologyAnalysis
+from .ops.factor import CholeskyFactor
 from .ops.multigrid import GridMGFactor
 from .ops.stencil import GridStencilOperator
 
@@ -25,23 +26,51 @@ def _t(a, device, dtype=None):
                                                   device=device)
 
 
-def analysis_from_numpy(x, X, conn, dvmap, num_design_vars, kernel,
+def filter_from_numpy(conn, X, r0, ftype, state, dvmap=None,
+                      num_design_vars=None, grid_shape=None, device="cuda",
+                      **options):
+    """A ``NodeFilter`` of type ``ftype`` holding JAX's filter state:
+    the conv kernel (``_kernel``), the spatial ELL pair (``idx``, ``wts``)
+    or the Helmholtz pair (the factored matrix A, ``_Bmat``). ``options``
+    are the filter's projection fields (beta, eta, projection).
+
+    The state is built once on the given device by the constructor (the
+    spatial one from a ``KDTree``) and then replaced by JAX's, so both
+    packages filter with the same numbers."""
+    fltr = NodeFilter(conn, X, r0=r0, ftype=ftype, dvmap=dvmap,
+                      num_design_vars=num_design_vars,
+                      grid_shape=grid_shape, device=device, **options)
+    if ftype == "conv":
+        fltr._kernel = _t(state, device, torch.float64)
+    elif ftype == "spatial":
+        fltr.idx = _t(state[0], device, torch.int64)
+        fltr.wts = _t(state[1], device, torch.float64)
+    else:
+        A, Bmat = (_t(a, device, torch.float64) for a in state)
+        fltr._chol = CholeskyFactor.from_matrix(A)
+        fltr._Bmat = Bmat
+    return fltr
+
+
+def analysis_from_numpy(x, X, conn, dvmap, num_design_vars, filter_state,
                         grid_shape, r0, device="cuda", projection=False,
-                        beta=10.0, eta=0.5, **config):
+                        beta=10.0, eta=0.5, ftype="conv", uniform_grid=True,
+                        **config):
     """A ``TopologyAnalysis`` on the given state.
 
-    x : design vector; X, conn : the mesh; dvmap, num_design_vars, kernel,
-    r0 : the conv filter (its ``dvmap`` and ``_kernel``); grid_shape and
-    ``config`` (the TopologyAnalysis keyword fields: N, m, sigma, lanczos_*,
-    factor_options, adjoint_options, ...).
+    x : design vector; X, conn : the mesh; dvmap, num_design_vars,
+    filter_state, r0, ftype : the filter (see ``filter_from_numpy``);
+    grid_shape, uniform_grid (that of JAX's ``make_model``) and ``config``
+    (the TopologyAnalysis keyword fields: factor_kind, N, m, sigma,
+    lanczos_*, factor_options, adjoint_options, ...).
     """
-    fltr = NodeFilter(conn, X, r0=r0, ftype="conv", dvmap=dvmap,
-                      num_design_vars=num_design_vars, beta=beta, eta=eta,
-                      projection=projection, grid_shape=grid_shape,
-                      device=device)
-    fltr._kernel = _t(kernel, device, torch.float64)
+    fltr = filter_from_numpy(conn, X, r0, ftype, filter_state, dvmap=dvmap,
+                             num_design_vars=num_design_vars,
+                             grid_shape=grid_shape, device=device,
+                             projection=projection, beta=beta, eta=eta)
     topo = TopologyAnalysis(fltr, conn, X, grid_shape=grid_shape,
-                            device=device, **config)
+                            uniform_grid=uniform_grid, device=device,
+                            **config)
     topo.x = _t(x, device, torch.float64)
     return topo
 

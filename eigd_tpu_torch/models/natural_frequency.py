@@ -1,18 +1,26 @@
-"""Natural-frequency topology analysis on a uniform grid.
+"""Natural-frequency topology analysis.
 
-Counterpart of ``eigd_tpu/models/natural_frequency.py:28-270,564`` for
-``uniform_grid=True`` and ``factor_kind="mg"``: the chain
-x -> conv filter -> element densities -> (K, M) grid stencils -> block
-shift-invert Lanczos on the multigrid factor -> (lam, Phi) is one
-differentiable function whose eigensolve carries the adjoint backward pass
-(``ops.autodiff.eigh_gen``). The structure is free-free: the three rigid
-modes are deflated out of the Krylov iteration. The three-phase adjoint
-protocol, ``MinFreqOpt`` and the direct factors are not ported (ROADMAP
-queue 1, items 4 and 9).
+Counterpart of ``eigd_tpu/models/natural_frequency.py``: the chain
+x -> filter -> element densities -> (K, M) -> shift-invert Lanczos ->
+(lam, Phi) is one differentiable function whose eigensolve carries the
+adjoint backward pass (``ops.autodiff.eigh_gen``). The structure is
+free-free: the three rigid modes are deflated out of the Krylov iteration.
+The factor is the multigrid one on a grid (``factor_kind="mg"``) or the
+dense Cholesky one (``"dense"``); the assembly is the uniform-grid one
+(one reference element) or the general per-element one.
+
+The reference's three-phase adjoint protocol (``initialize``,
+``initialize_adjoint``, ``finalize_adjoint``) holds the autograd graph of
+``_solve_fn(x)`` where JAX holds its ``jax.vjp`` closure, and pulls the
+accumulated (lamb, Qb) seeds through it with ``torch.autograd.grad``.
+``MinFreqOpt`` is the reference's KS-aggregated minimum frequency with
+point masses. The block factors (ROADMAP queue 1, item 15) and
+``save_state``/``restore_state`` (item 17) are not ported.
 """
 
 from __future__ import annotations
 
+import time
 import warnings
 
 import numpy as np
@@ -20,7 +28,10 @@ import torch
 
 from ..fem import assembly as fem
 from ..fem.quad import plane_stress_tables
-from ..ops.autodiff import EigProblem, EighGenConfig, eigh_gen
+from ..ops import adjoint as adj
+from ..ops.autodiff import EigProblem, EighGenConfig, _kernel_ops, eigh_gen
+from ..ops.factor import make_shift_factor
+from ..ops.lanczos import b_orthonormalize_rows, lanczos_solve
 from ..ops.operators import ElementOperator
 from ..ops.stencil import GridStencilOperator
 
@@ -32,20 +43,20 @@ class TopologyAnalysis:
                  E=1.0, nu=0.3, ptype_K="simp", ptype_M="simp", rho0_K=1e-6,
                  rho0_M=1e-9, p=3.0, q=5.0, density=1.0, sigma=-10.0, N=10,
                  m=None, rtol=1e-10, eig_atol=1e-5, adjoint_method="sibk",
-                 adjoint_options=None, factor_kind="mg", grid_shape=None,
+                 adjoint_options=None, factor_kind="dense", grid_shape=None,
                  lanczos_tol=None, lanczos_block=1, lanczos_ortho="full",
-                 lanczos_check_every=1, uniform_grid=True,
+                 lanczos_check_every=1, uniform_grid=False,
                  factor_options=None, lanczos_polish=0,
                  lanczos_polish_spare=0, lanczos_sweep="exact",
                  kernel_mv="auto", device="cuda"):
-        if factor_kind != "mg" or grid_shape is None:
+        if factor_kind.startswith(("blocktridiag", "bcr")):
             raise NotImplementedError(
-                f"factor_kind={factor_kind!r}: only the multigrid factor on "
-                "a grid is ported (ROADMAP queue 1, item 4 lists the dense "
-                "and block factors)")
-        if not uniform_grid:
-            raise NotImplementedError(
-                "only the uniform-grid assembly is ported")
+                f"factor_kind={factor_kind!r}: the block factors wait for "
+                "ops/blockfactor.py (ROADMAP queue 1, item 15)")
+        if factor_kind not in ("mg", "dense"):
+            raise ValueError(f"Unknown factor_kind {factor_kind!r}")
+        if factor_kind == "mg" and grid_shape is None:
+            raise ValueError("factor_kind='mg' needs grid_shape")
         self.device = torch.device(device)
         self.fltr = fltr
         # np.array copies: torch.as_tensor warns on read-only arrays
@@ -91,9 +102,13 @@ class TopologyAnalysis:
 
         self.C0 = fem.plane_stress_C0(E, nu, device=self.device)
         self.dofs = fem.element_dof_map(self.conn)
+        self.Be, self.He, self.detJ = plane_stress_tables(self.X, self.conn)
         # uniform grid: every element has the tables of element 0
-        Be, He, detJ = plane_stress_tables(self.X, self.conn[:1])
-        self.Be, self.He, self.detJ = Be[:, 0], He[:, 0], detJ[:, 0]
+        self._uniform = bool(uniform_grid)
+        if self._uniform:
+            self.Be = self.Be[:, :1]
+            self.He = self.He[:, :1]
+            self.detJ = self.detJ[:, :1]
 
         self.cfg = EighGenConfig(
             N=N, m=self.m, sigma=sigma, mode="normal",
@@ -108,47 +123,66 @@ class TopologyAnalysis:
             adjoint_ladder=adjoint_options.get("ladder", "approx"),
             polish=lanczos_polish, polish_spare=lanczos_polish_spare,
             lanczos_sweep=lanczos_sweep, kernel_mv=kernel_mv)
-        self.grid_shape = tuple(grid_shape)
-        mg_opts = dict(factor_options or {})
+        self.grid_shape = (tuple(grid_shape) if grid_shape is not None
+                           else None)
+        factor_fn = None  # dense: make_shift_factor's Cholesky factor
+        if factor_kind == "mg":
+            mg_opts = dict(factor_options or {})
 
-        def factor_fn(A, B, sig, mode):
-            from ..ops.multigrid import GridMGFactor
+            def factor_fn(A, B, sig, mode):
+                from ..ops.multigrid import GridMGFactor
 
-            return GridMGFactor.build(A.W - sig * B.W, self.grid_shape, 2,
-                                      **mg_opts)
+                return GridMGFactor.build(A.W - sig * B.W, self.grid_shape,
+                                          2, **mg_opts)
 
         self.problem = EigProblem(assemble=self._assemble,
                                   nullspace=self._nullspace,
                                   factor=factor_fn)
         self.x = 0.95 * torch.ones(self.fltr.num_design_vars,
                                    dtype=torch.float64, device=self.device)
+        self.Q = None
+        self.lam = None
+        self._graph = None
+        self.profile = self._init_profile()
 
     # ------------------------------------------------------------------
     # Differentiable core
     # ------------------------------------------------------------------
 
     def element_matrices(self):
-        """The reference element stiffness and mass matrices (8, 8)."""
-        Ke0 = torch.einsum("qij,ik,qkl,q->jl", self.Be, self.C0, self.Be,
-                           self.detJ)
-        Me0 = torch.einsum("qij,qil,q->jl", self.He, self.He, self.detJ)
+        """The uniform grid's reference element stiffness and mass matrices
+        (8, 8)."""
+        Be, He, detJ = self.Be[:, 0], self.He[:, 0], self.detJ[:, 0]
+        Ke0 = torch.einsum("qij,ik,qkl,q->jl", Be, self.C0, Be, detJ)
+        Me0 = torch.einsum("qij,qil,q->jl", He, He, detJ)
         return Ke0, Me0
 
     def _assemble(self, rhoE):
-        """rhoE -> (K, M) grid stencil operators (differentiable)."""
-        Ke0, Me0 = self.element_matrices()
-        c = fem.stiffness_interp(rhoE, ptype=self.ptype_K, p=self.p,
-                                 q=self.q, rho0=self.rho0_K)
-        dens = fem.mass_interp(rhoE, ptype=self.ptype_M, q=self.q,
-                               rho0=self.rho0_M, density=self.density)
-        K = ElementOperator(c[:, None, None] * Ke0[None], self.dofs,
-                            self.nvars)
-        M = ElementOperator(dens[:, None, None] * Me0[None], self.dofs,
-                            self.nvars)
-        K = GridStencilOperator.from_element_operator(K, self.grid_shape,
-                                                      ndof=2)
-        M = GridStencilOperator.from_element_operator(M, self.grid_shape,
-                                                      ndof=2)
+        """rhoE -> (K, M) operators (differentiable): grid stencils when
+        the mesh is a grid, element operators otherwise."""
+        if self._uniform:
+            Ke0, Me0 = self.element_matrices()
+            c = fem.stiffness_interp(rhoE, ptype=self.ptype_K, p=self.p,
+                                     q=self.q, rho0=self.rho0_K)
+            dens = fem.mass_interp(rhoE, ptype=self.ptype_M, q=self.q,
+                                   rho0=self.rho0_M, density=self.density)
+            K = ElementOperator(c[:, None, None] * Ke0[None], self.dofs,
+                                self.nvars)
+            M = ElementOperator(dens[:, None, None] * Me0[None], self.dofs,
+                                self.nvars)
+        else:
+            K = fem.stiffness_matrix(rhoE, self.Be, self.detJ, self.dofs,
+                                     self.nvars, self.C0,
+                                     ptype=self.ptype_K, p=self.p, q=self.q,
+                                     rho0=self.rho0_K)
+            M = fem.mass_matrix(rhoE, self.He, self.detJ, self.dofs,
+                                self.nvars, ptype=self.ptype_M, q=self.q,
+                                rho0=self.rho0_M, density=self.density)
+        if self.grid_shape is not None:
+            K = GridStencilOperator.from_element_operator(K, self.grid_shape,
+                                                          ndof=2)
+            M = GridStencilOperator.from_element_operator(M, self.grid_shape,
+                                                          ndof=2)
         return K, M
 
     def _nullspace(self, rhoE):
@@ -169,10 +203,268 @@ class TopologyAnalysis:
         lam, Phi = eigh_gen(rhoE, self.problem, self.cfg)
         return lam, Phi, rho, rhoE
 
+    # ------------------------------------------------------------------
+    # Three-phase adjoint protocol
+    # ------------------------------------------------------------------
+
+    def _elapsed(self, t0):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter() - t0
+
+    def initialize(self, store=False):
+        """Solve at ``self.x`` and hold the autograd graph of the solve for
+        ``finalize_adjoint``; eigenvector signs follow the previous solve."""
+        t0 = time.perf_counter()
+        x = self.x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            lam, Q, rho, rhoE = self._solve_fn(x)
+        self._graph = (x, lam, Q)
+        self.lam, Q = lam.detach(), Q.detach()
+        self.rho, self.rhoE = rho.detach(), rhoE.detach()
+        if self.Q is not None and self.Q.shape == Q.shape:
+            # the graph gives Q before the flip: the signs fold into the
+            # seeds in finalize_adjoint
+            flip = torch.sum(Q * self.Q, dim=0) < 0.0
+            self._signs = 1.0 - 2.0 * flip.to(Q.dtype)
+            Q = Q * self._signs[None, :]
+        else:
+            self._signs = torch.ones(Q.shape[1], dtype=Q.dtype,
+                                     device=Q.device)
+        self.Q = Q
+        self.profile["eigenvalue solve time"] = self._elapsed(t0)
+        # factor-apply budgets (upper bounds; add_check_adjoint_residual
+        # records the counts of a run)
+        self.profile["solve preconditioner count (max)"] = (
+            self.m if self.cfg.block <= 1
+            else -(-self.m // self.cfg.block))
+        self.profile["adjoint preconditioner count (max)"] = (
+            1 + self.cfg.nrestart * -(-self.cfg.adjoint_maxiter // self.N))
+        self.profile["adjoint solution method"] = self.cfg.adjoint_method
+        self.profile["natural frequencies"] = torch.sqrt(self.lam).tolist()
+        if store:
+            self.profile["eigenvalues"] = self.lam.tolist()
+
+    def initialize_adjoint(self):
+        self.xb = torch.zeros_like(self.x)
+        self.lamb = torch.zeros_like(self.lam)
+        self.Qb = torch.zeros_like(self.Q)
+
+    def finalize_adjoint(self):
+        """xb += the seeds (lamb, Qb) pulled through the graph that
+        ``initialize`` holds; the graph is freed, so this runs once per
+        ``initialize``."""
+        t0 = time.perf_counter()
+        x, lam, Q = self._graph
+        self._graph = None
+        (xb,) = torch.autograd.grad(
+            (lam, Q), x, (self.lamb, self.Qb * self._signs[None, :]))
+        self.xb = self.xb + xb
+        self.profile["adjoint solution time"] = self._elapsed(t0)
+
+    # ------------------------------------------------------------------
+    # Functions of the solution + seed accumulation
+    # ------------------------------------------------------------------
+
+    def get_frequencies(self):
+        return torch.sqrt(self.lam)
+
+    def add_frequency_derivatives(self, omegab):
+        omegab = torch.as_tensor(omegab, dtype=self.lam.dtype,
+                                 device=self.device)
+        self.lamb = self.lamb + 0.5 * omegab / torch.sqrt(self.lam)
+
+    def _node_set(self, name):
+        nodes = torch.as_tensor(np.asarray(self.node_sets[name]),
+                                dtype=torch.int64, device=self.device)
+        return nodes, 1.0 / len(nodes)
+
+    def get_point_coefficients(self, name):
+        """Mean modal displacement coefficients over a node set: x0 (3,)
+        and xcoef (3, N)."""
+        nodes, weight = self._node_set(name)
+        zero = self.X.new_zeros(())
+        x0 = torch.stack([weight * torch.sum(self.X[nodes, 0]),
+                          weight * torch.sum(self.X[nodes, 1]), zero])
+        xcoef = torch.stack([
+            weight * torch.sum(self.Q[2 * nodes], dim=0),
+            weight * torch.sum(self.Q[2 * nodes + 1], dim=0),
+            self.Q.new_zeros(self.Q.shape[1])])
+        return x0, xcoef
+
+    def add_point_derivative(self, name, x0b, xcoefb):
+        if xcoefb is None:
+            return
+        nodes, weight = self._node_set(name)
+        k = nodes.shape[0]
+        self.Qb = self.Qb.index_add(
+            0, 2 * nodes, (weight * xcoefb[0])[None, :].expand(k, -1))
+        self.Qb = self.Qb.index_add(
+            0, 2 * nodes + 1, (weight * xcoefb[1])[None, :].expand(k, -1))
+
+    def eval_area(self):
+        return torch.sum(self.detJ * self.rhoE[None, :])
+
+    def eval_area_gradient(self):
+        with torch.enable_grad():
+            x = self.x.detach().requires_grad_(True)
+            rhoE = fem.element_density(self.fltr.apply(x), self.conn)
+            (g,) = torch.autograd.grad(
+                torch.sum(self.detJ * rhoE[None, :]), x)
+        return g
+
+    def add_check_adjoint_residual(self, b_ortho=True):
+        """Diagnostics: solve again at the current design (single-vector
+        Lanczos with the rigid modes deflated, then LAA + non-mixed SIBK on
+        the accumulated Qb) and record each mode's adjoint residual and
+        orthogonality, the iteration counts and, for an iterative factor,
+        its inner iterations on one probe apply. Returns the residuals."""
+        with torch.no_grad():
+            rhoE = fem.element_density(self.fltr.apply(self.x), self.conn)
+            A, B = _kernel_ops(*self._assemble(rhoE), self.cfg)
+            if self.problem.factor is not None:
+                factor = self.problem.factor(A, B, self.sigma, "normal")
+            else:
+                factor = make_shift_factor(A, B, self.sigma)
+            deflate = b_orthonormalize_rows(self._nullspace(rhoE), B.mv)
+            res = lanczos_solve(A, B, factor, self.sigma, self.cfg.N, self.m,
+                                deflate=deflate, seed=self.cfg.seed)
+            Phib = self.Qb * self._signs[None, :]
+            psi0 = adj.laa(Phib, B, factor, res, b_ortho=True)
+            psi, _, info = adj.sibk(
+                Phib, A, B, res.lam, res.Phi, psi=psi0, sigma=self.sigma,
+                factor=factor, rtol=self.cfg.adjoint_rtol,
+                eig_atol=self.eig_atol, maxiter=self.cfg.adjoint_maxiter,
+                nrestart=self.cfg.nrestart)
+            r, o = adj.eval_adjoint_residual_norm(A, B, res.lam, res.Phi,
+                                                  Phib, psi, b_ortho=b_ortho)
+            for i, (ri, oi, li) in enumerate(zip(r.tolist(), o.tolist(),
+                                                 res.lam.tolist())):
+                self.profile[f"adjoint norm[{i:2d}]"] = ri
+                self.profile[f"adjoint ortho[{i:2d}]"] = oi
+                self.profile[f"adjoint lam[{i:2d}]"] = li
+            self.profile["adjoint residuals"] = info["res"].tolist()
+            self.profile["adjoint residual history"] = info["hist"].tolist()
+            self.profile["adjoint iterations"] = int(info["niter"])
+            self.profile["eigensolve iterations"] = int(res.niter)
+            self.profile["eigensolve residuals"] = res.eig_res.tolist()
+            if hasattr(factor, "mv_info"):
+                _, finfo = factor.mv_info(B.mv(res.Phi[:, :1]))
+                self.profile["factor apply iterations"] = int(finfo["niter"])
+                self.profile["factor apply final res2"] = float(
+                    torch.max(finfo["res2"]))
+                self.profile["factor apply tol2"] = float(
+                    torch.max(finfo["tol2"]))
+        return r
+
+    def _init_profile(self):
+        return {"nnodes": self.nnodes, "nelems": self.nelems, "N": self.N,
+                "E": self.E, "nu": self.nu, "density": self.density,
+                "p": self.p, "eig_atol": self.eig_atol, "sigma": self.sigma,
+                "m": self.m}
+
+
+class MinFreqOpt:
+    """KS-aggregated minimum natural frequency of the structure with
+    parasitic point masses; its seeds come from ``torch.autograd``."""
+
+    def __init__(self, topo: TopologyAnalysis, ks_param=1.0, fixed_mass=1.0):
+        self.topo = topo
+        self.ks_param = ks_param
+        self.fixed_mass = fixed_mass
+        self.node_sets = topo.node_sets
+
+    def _eval_min_frequency(self, omega, coefs):
+        """KS-min over the node sets' reduced problems: for each set
+        K0 = diag(omega^2), M0 = I + fixed_mass c0^T c0, a KS-min over its
+        frequencies; then a KS-min over the sets (differentiable)."""
+        ks = self.ks_param
+        N = omega.shape[0]
+        eye = torch.eye(N, dtype=omega.dtype, device=omega.device)
+        vals = []
+        for name in sorted(coefs):
+            c0 = coefs[name]
+            L = torch.linalg.cholesky(eye + self.fixed_mass * c0.T @ c0)
+            C = torch.linalg.solve_triangular(L, torch.diag(omega**2),
+                                              upper=False)
+            C = torch.linalg.solve_triangular(L, C.T, upper=False)
+            omega0 = torch.sqrt(torch.linalg.eigvalsh(0.5 * (C + C.T)))
+            low = torch.min(omega0)
+            vals.append(low - torch.log(torch.sum(
+                torch.exp(-ks * (omega0 - low)))) / ks)
+        vals = torch.stack(vals)
+        low = torch.min(vals)
+        return low - torch.log(torch.sum(torch.exp(-ks * (vals - low)))) / ks
+
+    def initialize(self, store=False):
+        self.topo.initialize(store)
+        self.omega = self.topo.get_frequencies()
+        self.coef = {name: self.topo.get_point_coefficients(name)[1]
+                     for name in self.node_sets}
+        names = sorted(self.coef)
+        with torch.enable_grad():
+            om = self.omega.detach().requires_grad_(True)
+            cf = {k: self.coef[k].detach().requires_grad_(True)
+                  for k in names}
+            ks = self._eval_min_frequency(om, cf)
+            grads = torch.autograd.grad(ks, [om] + [cf[k] for k in names])
+        self.ks_min = ks.detach()
+        self.omegab = grads[0]
+        self.coefb = dict(zip(names, grads[1:]))
+
+    def initialize_adjoint(self):
+        self.topo.initialize_adjoint()
+
+    def finalize_adjoint(self):
+        self.topo.add_frequency_derivatives(self.omegab)
+        for name in self.node_sets:
+            self.topo.add_point_derivative(name, None, self.coefb[name])
+        self.topo.finalize_adjoint()
+
+    def get_min_frequency(self):
+        return self.ks_min
+
+    def test_ks_func(self, dh_fd=1e-6, pert=None):
+        """The reference's FD check of the KS gradient along ``pert``
+        (default: numpy's global uniform draw)."""
+        self.initialize(store=True)
+        x0 = self.topo.x.clone()
+
+        self.initialize_adjoint()
+        self.finalize_adjoint()
+        self.topo.add_check_adjoint_residual(b_ortho=True)
+
+        if pert is None:
+            pert = np.random.uniform(size=tuple(x0.shape))
+        pert = torch.as_tensor(pert, dtype=x0.dtype, device=x0.device)
+
+        data = {"ans": float(pert @ self.topo.xb)}
+        data.update({k: v for k, v in self.topo.profile.items()
+                     if isinstance(v, (int, float, str))})
+
+        self.topo.x = x0 + dh_fd * pert
+        self.initialize()
+        ks2 = float(self.get_min_frequency())
+        self.topo.x = x0 - dh_fd * pert
+        self.initialize()
+        ks3 = float(self.get_min_frequency())
+        self.topo.x = x0
+
+        data["dh_fd"] = dh_fd
+        data["fd"] = (ks2 - ks3) / (2 * dh_fd)
+        data["fd_err"] = abs((data["ans"] - data["fd"]) / data["fd"])
+        print("%25s  %25s  %25s" % ("Answer", "FD", "FD Rel Error"))
+        print("%25.15e  %25.15e  %25.15e" % (data["ans"], data["fd"],
+                                             data["fd_err"]))
+        return data
+
 
 def make_model(nx=128, ny=64, Lx=1.0, Ly=1.0, rfact=4.0, N=10, Mx=3, My=3,
                ns=2, device="cuda", **kwargs):
-    """Symmetric optimization model factory (the JAX ``make_model``)."""
+    """Symmetric optimization model factory (the JAX ``make_model``): a
+    uniform grid with a ``conv`` filter (``ftype="spatial"`` or
+    ``"helmholtz"`` for the general ones) and the dense factor unless
+    ``factor_kind`` says otherwise."""
     from ..fem.filter import NodeFilter
     from ..fem.model import make_grid, make_symmetric_dvmap_with_sets
 
@@ -180,9 +472,9 @@ def make_model(nx=128, ny=64, Lx=1.0, Ly=1.0, rfact=4.0, N=10, Mx=3, My=3,
     r0 = rfact * (Ly / ny)
     dvmap, ndv, node_sets, element_sets = make_symmetric_dvmap_with_sets(
         mesh, Mx=Mx, My=My, ns=ns, rfact=rfact)
-    ftype = kwargs.pop("ftype", "conv")
     fltr = NodeFilter(mesh.conn, mesh.X, r0=r0, dvmap=dvmap,
-                      num_design_vars=ndv, ftype=ftype, grid_shape=(nx, ny),
+                      num_design_vars=ndv, ftype=kwargs.pop("ftype", "conv"),
+                      grid_shape=(nx, ny),
                       projection=kwargs.pop("projection", False),
                       beta=kwargs.pop("b0", 10.0), device=device)
     kwargs.setdefault("grid_shape", (nx, ny))

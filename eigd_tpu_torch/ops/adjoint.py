@@ -1,13 +1,14 @@
-"""Eigenvector-adjoint solvers and total-derivative weights (main path).
+"""Eigenvector-adjoint solvers and total-derivative weights.
 
-Counterpart of ``eigd_tpu/ops/adjoint.py:45-366,606``: the repeated-
+Counterpart of ``eigd_tpu/ops/adjoint.py:45-990``: the repeated-
 eigenvalue corrections, the total-derivative weight blocks, the LAA
-Galerkin guess and the SIBK shift-invert block-Krylov solver with the
-mixed-precision ladder. All N adjoint systems advance together as (n, N)
-blocks. JAX's ``while_loop``s become Python loops whose exits are host
-decisions (``sync.host_bool``); JAX's ``vmap`` over the N shifted
-least-squares systems becomes a batch dimension. ``pcpg``, ``pgmres`` and
-``dl`` are not ported (ROADMAP queue 1, item 12).
+Galerkin guess, the SIBK shift-invert block-Krylov solver with the
+mixed-precision ladder, PCPG and projected GMRES. All N adjoint systems
+advance together as (n, N) blocks. JAX's ``while_loop``s become Python
+loops whose exits are host decisions (``sync.host_bool``); JAX's ``vmap``
+over the N shifted systems (SIBK's least squares, PGMRES's Arnoldi
+recurrences) becomes a batch dimension. ``dl`` is not ported (ROADMAP
+queue 1, item 12).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from .collective import pdot, qr_tall
 from .lanczos import LanczosResult, _normal_mode_only
+from .operators import as_operator
 from .sync import host_bool
 
 
@@ -105,6 +107,23 @@ def total_derivative_weights(lam, Phi, lamb, Phib, psi, adj_corr_data=None,
     return W_A, W_B
 
 
+def add_eig_total_derivative(lam, Phi, lamb, Phib, psi, dAdx, dBdx, dfdx,
+                             adj_corr_data=None, mode="normal",
+                             deriv_type="tensor"):
+    """dfdx + dAdx(W_A, Phi) - dBdx(W_B, Phi) with the weight blocks of
+    ``total_derivative_weights``; ``dAdx(W, V)`` contracts
+    sum_i w_i^T (dA/dx) v_i. Either callback may be None."""
+    del deriv_type  # the batched contraction always
+    W_A, W_B = total_derivative_weights(lam, Phi, lamb, Phib, psi,
+                                        adj_corr_data=adj_corr_data,
+                                        mode=mode)
+    if dAdx is not None:
+        dfdx = dfdx + dAdx(W_A, Phi)
+    if dBdx is not None:
+        dfdx = dfdx - dBdx(W_B, Phi)
+    return dfdx
+
+
 # ---------------------------------------------------------------------------
 # Residual / orthogonality diagnostics
 # ---------------------------------------------------------------------------
@@ -116,6 +135,7 @@ def eval_adjoint_residual_norm(A, B, lam, Phi, Phib, psi, mode="normal",
     b_i = -(Phib_i - B phi_i (phi_i . Phib_i)), and the orthogonality
     |phi_i^T B psi_i| (or max_j |(B phi_j)^T psi_i| if b_ortho)."""
     _normal_mode_only(mode)
+    A, B = as_operator(A), as_operator(B)
     BPhi = B.mv(Phi)
     proj_coef = torch.sum(Phi * Phib, dim=0)
     bmat = -(Phib - BPhi * proj_coef[None, :])
@@ -142,6 +162,7 @@ def laa(Phib, B, factor, res: LanczosResult, b_ortho=False, mode="normal",
     psi = -factor(B V (Ys (D * scale))),  scale = 1/(lam - sigma).
     """
     _normal_mode_only(mode)
+    B = as_operator(B)
     m = res.m
     N = Phib.shape[1]
     V = res.V[:m]
@@ -216,6 +237,7 @@ def _sibk_setup(Phib, A, B, lam, Phi, mode="normal", sigma=None,
     projected residual of psi and updates psi by batched shifted
     least-squares; ``true_resnorm`` measures the restart residual."""
     _normal_mode_only(mode)
+    A, B = as_operator(A), as_operator(B)
     n, N = Phib.shape
     dtype = Phib.dtype
     device = Phib.device
@@ -387,4 +409,212 @@ def sibk(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
     denom = torch.clamp(s.rnorm0, min=1e-300)
     info = {"res": resn / denom, "niter": nsteps, "rounds": rounds,
             "hist": hist / denom}
+    return psi, data, info
+
+
+# ---------------------------------------------------------------------------
+# PCPG - preconditioned conjugate projected gradient (block form)
+# ---------------------------------------------------------------------------
+
+
+def pcpg(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
+         factor=None, rtol=1e-10, atol=1e-30, eig_atol=1e-5, maxiter=100,
+         reset=25, precond=None, deflate=None):
+    """PCPG adjoint solver (Alvin, AIAA J. 1997).
+
+    All N systems advance together with per-column coefficients; converged
+    columns freeze, and the loop exits once every column is under
+    ``rtol * max ||Phib_i||``: one host decision an iteration
+    (``sync.HOST_SYNCS["pcpg"]``). The beta update is flexible
+    (Polak-Ribiere) with a hard reset every ``reset`` iterations.
+
+    ``precond``: a cheap apply (f32 in, f32 out) in place of the exact
+    ``factor.mv``. ``deflate``: the (U, BU) rows deflated out of the
+    forward solve (eigenvalue 0, where the projected operator is
+    indefinite); their adjoint components are resolved exactly,
+    psi_i += u_r (u_r . Phib_i) / lam_i, and every iterate stays
+    B-orthogonal to U.
+
+    Returns (psi, EigCorrection, info) with info = dict(res = final
+    relative residuals, niter, hist = per-iteration history).
+    """
+    _normal_mode_only(mode)
+    A, B = as_operator(A), as_operator(B)
+    N = Phib.shape[1]
+    dtype = Phib.dtype
+    if psi is None:
+        psi = torch.zeros_like(Phib)
+
+    BPhi = B.mv(Phi)
+    rnorm0 = torch.sqrt(torch.max(torch.sum(Phib * Phib, dim=0)))
+    tol = torch.clamp(rtol * rnorm0, min=atol)
+
+    if precond is None:
+        M = factor.mv
+    else:
+        def M(Zp):
+            return precond(Zp.to(torch.float32)).to(dtype)
+
+    if deflate is not None:
+        U, BU = deflate
+        psi = psi + U.T @ ((U @ Phib) / lam[None, :])
+
+        def defl_r(X):  # residual space: coefficients u_r . X
+            return X - BU.T @ (U @ X)
+
+        def defl_z(X):  # solution space: coefficients Bu_r . X
+            return X - U.T @ (BU @ X)
+    else:
+        def defl_r(X):
+            return X
+
+        defl_z = defl_r
+
+    R = -Phib - (A.mv(psi) - B.mv(psi) * lam[None, :])
+    G = Phi.T @ R
+    R = defl_r(R - BPhi @ G)
+
+    hist = torch.full((maxiter, N), torch.nan, dtype=dtype,
+                      device=Phib.device)
+    Rprev = torch.zeros_like(R)
+    P0 = torch.zeros_like(R)
+    zTr_prev = torch.ones(N, dtype=dtype, device=Phib.device)
+    k = 0
+    while k < maxiter and host_bool(
+            torch.any(torch.sum(R * R, dim=0) > tol * tol), "pcpg"):
+        resn = torch.sqrt(torch.sum(R * R, dim=0))
+        hist[k] = resn
+        active = resn > tol
+        Z = M(defl_r(R - BPhi @ (Phi.T @ R)))
+        Z = defl_z(Z - Phi @ (BPhi.T @ Z))
+        zTr = torch.sum(Z * R, dim=0)
+        if k % reset == 0:
+            beta = torch.zeros_like(zTr)
+        else:
+            zTr_flex = zTr - torch.sum(Z * Rprev, dim=0)
+            beta = zTr_flex / torch.where(zTr_prev == 0.0, 1.0, zTr_prev)
+        P = Z + beta[None, :] * P0
+        tA = A.mv(P)
+        tB = B.mv(P)
+        denom = torch.sum(tA * P, dim=0) - lam * torch.sum(tB * P, dim=0)
+        step = torch.where(active & (denom > 0.0),
+                           zTr / torch.where(denom == 0.0, 1.0, denom), 0.0)
+        psi = psi + step[None, :] * P
+        Rprev = R
+        R = R - step[None, :] * (tA - tB * lam[None, :])
+        P0, zTr_prev = P, zTr
+        k += 1
+
+    psi = psi - Phi @ (BPhi.T @ psi)
+    psi, data = generate_adjoint_correction(lam, Phi, psi, G=G,
+                                            eig_atol=eig_atol, mode=mode)
+    denom = torch.clamp(rnorm0, min=1e-300)
+    info = {"res": torch.sqrt(torch.sum(R * R, dim=0)) / denom,
+            "niter": k, "hist": hist / denom}
+    return psi, data, info
+
+
+# ---------------------------------------------------------------------------
+# PGMRES - projected right-preconditioned GMRES, batched over the modes
+# ---------------------------------------------------------------------------
+
+
+def pgmres(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
+           factor=None, rtol=1e-10, atol=1e-30, eig_atol=1e-5, maxiter=50,
+           check_every=8):
+    """Projected GMRES adjoint solver: one Arnoldi recurrence a mode on its
+    own shifted operator (A - lam_i B) with the factor as the right
+    preconditioner, the N recurrences advanced as one batch.
+
+    Every ``check_every`` steps each mode's Hessenberg least-squares
+    residual is measured and a converged mode's recurrence freezes (JAX's
+    vmapped ``while_loop``); the loop ends when all have converged: one
+    host decision a check (``sync.HOST_SYNCS["pgmres"]``). The bases are
+    O(N * maxiter * n): a cross-check method at moderate n.
+
+    Returns (psi, EigCorrection, info) with info = dict(res = final
+    relative least-squares residuals, niter = steps summed over modes,
+    hist = per-check history).
+    """
+    _normal_mode_only(mode)
+    A, B = as_operator(A), as_operator(B)
+    n, N = Phib.shape
+    dtype = Phib.dtype
+    device = Phib.device
+    if psi is None:
+        psi = torch.zeros_like(Phib)
+
+    BPhi = B.mv(Phi)
+    rnorm0 = torch.sqrt(torch.max(torch.sum(Phib * Phib, dim=0)))
+    tol = torch.clamp(rtol * rnorm0, min=atol)
+
+    R0 = -Phib - (A.mv(psi) - B.mv(psi) * lam[None, :])
+    G = Phi.T @ R0
+    R0 = R0 - BPhi @ G
+
+    K = maxiter
+    col = torch.arange(K + 1, device=device)
+    nhist = K // check_every + 1
+    sub = torch.zeros((K + 1, K), dtype=dtype, device=device)
+    sub[1:] = torch.eye(K, dtype=dtype, device=device)  # unit subdiagonal
+
+    def lstsq(H, beta0):
+        # never-built (all-zero) columns get unit subdiagonals, so the
+        # least squares stays full rank; their components are zero
+        unit = (torch.sum(H * H, dim=1) == 0.0).to(dtype)
+        rhs = torch.zeros((N, K + 1), dtype=dtype, device=device)
+        rhs[:, 0] = beta0
+        return _lstsq_qr(H + sub[None] * unit[:, None, :], rhs)
+
+    beta0 = torch.sqrt(torch.sum(R0 * R0, dim=0))  # (N,)
+    W = torch.zeros((N, K + 1, n), dtype=dtype, device=device)
+    W[:, 0] = torch.where(beta0 > 0.0, 1.0, 0.0)[:, None] * (
+        R0 / torch.where(beta0 == 0.0, 1.0, beta0)[None, :]).T
+    H = torch.zeros((N, K + 1, K), dtype=dtype, device=device)
+    Z = torch.zeros((N, K, n), dtype=dtype, device=device)
+    hist = torch.full((N, nhist), torch.nan, dtype=dtype, device=device)
+    done = torch.zeros(N, dtype=torch.bool, device=device)
+    niters = torch.zeros(N, dtype=torch.int64, device=device)
+
+    j = 0
+    while j < K:
+        live = (~done).to(dtype)
+        wj = W[:, j].T  # (n, N)
+        z = factor.mv(wj - BPhi @ (Phi.T @ wj))
+        w = A.mv(z) - B.mv(z) * lam[None, :]
+        w = (w - BPhi @ (Phi.T @ w)).T  # (N, n)
+        mask = (col <= j).to(dtype)
+        h1 = torch.einsum("ikn,in->ik", W, w) * mask
+        w = w - torch.einsum("ik,ikn->in", h1, W)
+        h2 = torch.einsum("ikn,in->ik", W, w) * mask
+        w = w - torch.einsum("ik,ikn->in", h2, W)
+        h = h1 + h2
+        nw2 = torch.sum(w * w, dim=1)
+        ok = nw2 > 1e-60
+        nw = torch.sqrt(torch.where(ok, nw2, 1.0))
+        h[:, j + 1] = torch.where(ok, nw, 0.0)
+        # a converged mode keeps its state: its rows j+1 stay zero
+        W[:, j + 1] = (live * ok.to(dtype))[:, None] * w / nw[:, None]
+        H[:, :, j] = live[:, None] * h
+        Z[:, j] = live[:, None] * z.T
+        niters = niters + (~done).to(torch.int64)
+        j += 1
+        if j % check_every == 0:
+            _, res = lstsq(H, beta0)
+            hist[:, j // check_every] = torch.where(
+                done, hist[:, j // check_every], res)
+            done = done | (res < tol)
+            if host_bool(torch.all(done), "pgmres"):
+                break
+
+    y, res = lstsq(H, beta0)
+    dpsi = torch.einsum("ikn,ik->ni", Z, y)
+    use = (beta0 >= tol).to(dtype)
+    psi = psi + dpsi * use[None, :]
+
+    psi = psi - Phi @ (BPhi.T @ psi)
+    psi, data = generate_adjoint_correction(lam, Phi, psi, G=G,
+                                            eig_atol=eig_atol, mode=mode)
+    denom = torch.clamp(rnorm0, min=1e-300)
+    info = {"res": res / denom, "niter": niters.sum(), "hist": hist / denom}
     return psi, data, info

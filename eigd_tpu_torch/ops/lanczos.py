@@ -1,12 +1,13 @@
-"""Block shift-and-invert Lanczos with B-inner-product orthogonalization.
+"""Shift-and-invert Lanczos with B-inner-product orthogonalization.
 
-Counterpart of the block path of ``eigd_tpu/ops/lanczos.py``
+Counterpart of ``eigd_tpu/ops/lanczos.py``: the single-vector solver
+(``lanczos_iteration``, ``lanczos_solve``) and the block path
 (``block_lanczos_solve`` and its setup, extraction and Ritz polish). The
 reduced symmetric eigenproblems use ``torch.linalg.eigh`` in f64, which
 takes the place of JAX's ``eigh_accurate`` (a Jacobi polish that exists
 because XLA:TPU's eigh floors near 1e-7). The basis arrays are
-preallocated and updated in place. The single-vector solver
-(``lanczos_solve``) is not ported (ROADMAP queue 1, item 12).
+preallocated and updated in place. The host ``BasicLanczos`` wrapper is
+not ported (ROADMAP queue 1, item 12).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import types
 import torch
 
 from .collective import chunked_dot_f32, pdot
+from .operators import as_operator
 from .sync import host_bool, loop_exit
 
 
@@ -32,6 +34,23 @@ def map_ritz_values(theta, sigma, mode):
     _normal_mode_only(mode)
     lam = 1.0 / theta + sigma
     return lam, torch.argsort(lam, stable=True)
+
+
+def _tridiagonal(alpha, beta):
+    """The (m, m) tridiagonal T of the Lanczos coefficients; beta[m-1] is
+    the last residual norm and does not enter T."""
+    T = torch.diag(alpha)
+    if alpha.shape[0] > 1:
+        off = torch.diag(beta[:-1], 1)
+        T = T + off + off.T
+    return T
+
+
+def solve_reduced_problem(alpha, beta, sigma, mode):
+    """Eigendecomposition of T plus the eigenvalue map and sort order."""
+    theta, Y = torch.linalg.eigh(_tridiagonal(alpha, beta))
+    lam, order = map_ritz_values(theta, sigma, mode)
+    return theta, Y, lam, order
 
 
 def full_rayleigh_ritz(BV, W_raw, sigma, mode):
@@ -420,3 +439,153 @@ def block_lanczos_solve(A, B, factor, sigma, N, m, p, mode="normal",
     return _block_lanczos_extract(
         A, B, factor, sigma, N, mode, s, niter, p, tol is not None, ortho,
         polish, polish_spare, deflate)
+
+
+# ---------------------------------------------------------------------------
+# Single-vector solver
+# ---------------------------------------------------------------------------
+
+
+def lanczos_iteration(factor_mv, B_mv, v0, m, deflate=None, tol=None,
+                      nwanted=None, check_every=8, min_iter=None):
+    """Up to m shift-invert Lanczos steps on ``factor(B v)`` with full
+    B-orthogonalization (CGS2 against the cached B V rows).
+
+    v0 : (n,) start vector (normalized here). deflate : optional (U, BU)
+    rows kept out of the Krylov space. With ``tol`` set, every
+    ``check_every`` steps (from ``min_iter``, default nwanted + 2) the
+    reduced tridiagonal problem is solved and the loop exits once the
+    ``nwanted`` largest-theta pairs satisfy
+    ``|beta_i Y[i-1, j]| < tol * max(|theta|, 1)``: one host decision per
+    check, counted in ``sync.HOST_SYNCS["lanczos1_exit"]``. A breakdown
+    (||w||_B^2 <= 1e-60) freezes the recurrence with zero rows.
+
+    Returns (V, BV, alpha, beta, W_raw, niter): the (m+1, n) basis and its
+    B products (rows from niter on are zero), the coefficients, the (m, n)
+    raw operator outputs for the full Rayleigh-Ritz, and the steps run.
+    """
+    n = v0.shape[0]
+    dtype = v0.dtype
+    device = v0.device
+    defl = _deflator(deflate)
+
+    v0 = defl(v0)
+    bv0 = B_mv(v0)
+    b0 = torch.sqrt(pdot(v0, bv0))
+    V = torch.zeros((m + 1, n), dtype=dtype, device=device)
+    BV = torch.zeros((m + 1, n), dtype=dtype, device=device)
+    V[0] = v0 / b0
+    BV[0] = bv0 / b0
+    alpha = torch.zeros(m, dtype=dtype, device=device)
+    beta = torch.zeros(m, dtype=dtype, device=device)
+    W_raw = torch.zeros((m, n), dtype=dtype, device=device)
+    col = torch.arange(m + 1, device=device)
+
+    def step(i):
+        w = factor_mv(BV[i])
+        W_raw[i] = w
+        mask = (col <= i).to(dtype)
+        w = defl(w)
+        h1 = (BV @ w) * mask
+        w = w - V.T @ h1
+        h2 = (BV @ w) * mask
+        w = w - V.T @ h2
+        w = defl(w)
+        h = h1 + h2
+        bw = B_mv(w)
+        b2 = pdot(w, bw)
+        ok = b2 > 1e-60
+        b = torch.sqrt(torch.where(ok, b2, 1.0))
+        keep = ok.to(dtype)
+        V[i + 1] = keep * w / b
+        BV[i + 1] = keep * bw / b
+        alpha[i] = h[i]
+        beta[i] = torch.where(ok, b, 0.0)
+
+    if tol is None:
+        for i in range(m):
+            step(i)
+        return V, BV, alpha, beta, W_raw, m
+
+    if nwanted is None:
+        raise ValueError("tol requires nwanted")
+    min_iter = min(nwanted + 2 if min_iter is None else min_iter, m)
+    row = torch.arange(m, device=device)
+
+    def converged(i1):
+        # the inactive block decouples: its theta = 0 sort below the
+        # wanted (largest) ones
+        theta, Y = torch.linalg.eigh(_tridiagonal(
+            torch.where(row < i1, alpha, 0.0),
+            torch.where(row < i1 - 1, beta, 0.0)))
+        sel = torch.argsort(-theta, stable=True)[:nwanted]
+        res = torch.abs(beta[i1 - 1] * Y[i1 - 1, sel])
+        scale = torch.clamp(torch.max(torch.abs(theta)), min=1.0)
+        return host_bool(torch.all(res < tol * scale), "lanczos1_exit")
+
+    i = 0
+    while i < m:
+        step(i)
+        i += 1
+        if i % check_every == 0 and i >= min_iter and converged(i):
+            loop_exit("lanczos1_exit", "converged", i)
+            break
+    else:
+        loop_exit("lanczos1_exit", "last_step", i)
+    # rows from niter on carry no operator information: zero them so the
+    # full Rayleigh-Ritz sees an exactly decoupled inactive block
+    V[i:] = 0.0
+    BV[i:] = 0.0
+    return V, BV, alpha, beta, W_raw, i
+
+
+def lanczos_solve(A, B, factor, sigma, N, m, mode="normal", seed=12345,
+                  v0=None, deflate=None, tol=None, check_every=8,
+                  polish=0) -> LanczosResult:
+    """Single-vector shift-invert Lanczos: the N smallest eigenpairs.
+
+    The eigenpairs come from the full Rayleigh-Ritz of the measured
+    projected operator ``BV W_raw^T`` (symmetrized). With ``tol`` set the
+    iteration may exit early (``lanczos_iteration``); the Ritz values of
+    its decoupled inactive block (theta ~ 0) are mapped to +inf so they
+    sort last. ``polish`` runs ``polish_ritz_block`` on the selection.
+    With v0=None the start vector is drawn from a ``torch.Generator``
+    seeded with ``seed`` (JAX draws from ``jax.random``: parity runs pass
+    v0).
+    """
+    _normal_mode_only(mode)
+    A = as_operator(A)
+    B = as_operator(B)
+    dtype = A.dtype
+    device = A.device
+    if v0 is None:
+        v0 = _uniform_block(A.shape[0], 1, seed, dtype, device)[:, 0]
+    V, BV, alpha, beta, W_raw, niter = lanczos_iteration(
+        factor.mv, B.mv, v0, m, deflate=deflate, tol=tol, nwanted=N,
+        check_every=check_every)
+    Hf = BV[:m] @ W_raw.T
+    H = 0.5 * (Hf + Hf.T)
+    theta, Y = torch.linalg.eigh(H)
+    if tol is not None:
+        scale = torch.max(torch.abs(theta))
+        big = torch.abs(theta) > 1e-12 * scale
+        lam_all = torch.where(big, 1.0 / torch.where(big, theta, 1.0)
+                              + sigma, torch.inf)
+        order = torch.argsort(lam_all, stable=True)
+    else:
+        lam_all, order = map_ritz_values(theta, sigma, mode)
+
+    sel = order[:N]
+    lam = lam_all[sel]
+    Y0 = Y[:, sel]
+    last = min(max(niter - 1, 0), m - 1)
+    eig_res = torch.abs(beta[last] * Y0[last, :])
+    Phi = V[:m].T @ Y0
+    if polish:
+        lam, Phi, eig_res = polish_ritz_block(A, B, factor, lam, Phi, sigma,
+                                              mode, deflate=deflate,
+                                              nsteps=polish)
+    return LanczosResult(
+        lam=lam, Phi=Phi, V=V, BV=BV, alpha=alpha, beta=beta, H=H,
+        theta=theta, Y=Y, order=order, lam_all=lam_all, eig_res=eig_res,
+        sigma=torch.tensor(sigma, dtype=dtype, device=device), niter=niter)

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_stencil
+from .operators import element_dense
 
 # corner -> (di, dj) within the element
 _CORNERS = ((0, 0), (1, 0), (1, 1), (0, 1))
@@ -119,6 +120,10 @@ class GridStencilOperator:
             self.mats, self.dofs, self.n, self.W, self.grid_shape, self.ndof,
             Wp32=cuda_stencil.stencil_planes(W, self.ndof, torch.float32),
             Wp64=Wp64)
+
+    def to_dense(self):
+        """The dense (n, n) matrix, summed from the element matrices."""
+        return element_dense(self.mats, self.dofs, self.n)
 
     def mv(self, x):
         nx, ny = self.grid_shape

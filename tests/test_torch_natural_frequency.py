@@ -18,7 +18,9 @@ import pytest
 import torch
 
 from eigd_tpu.models.natural_frequency import make_model as j_make_model
-from eigd_tpu_torch.interop import (analysis_from_numpy, mg_factor_from_numpy,
+from eigd_tpu_torch.fem.filter import NodeFilter
+from eigd_tpu_torch.interop import (analysis_from_numpy, filter_from_numpy,
+                                    mg_factor_from_numpy,
                                     stencil_operator_from_numpy)
 from eigd_tpu_torch.models.natural_frequency import make_model as t_make_model
 from eigd_tpu_torch.ops import cuda_stencil, sync
@@ -105,7 +107,10 @@ def test_port_imports_no_jax():
                    timeout=120)
 
 
-@pytest.mark.parametrize("entry", ["make_model", "analysis_from_numpy",
+@pytest.mark.parametrize("entry", ["make_model", "make_model_dense",
+                                   "NodeFilter_spatial",
+                                   "NodeFilter_helmholtz",
+                                   "analysis_from_numpy", "filter_from_numpy",
                                    "stencil_operator_from_numpy",
                                    "mg_factor_from_numpy"])
 def test_entry_points_default_to_the_card(entry):
@@ -116,9 +121,18 @@ def test_entry_points_default_to_the_card(entry):
                       factor_kind="mg", lanczos_block=4)
     f = jt.fltr
     W = np.random.default_rng(0).standard_normal((5, 3, 3, 3, 2, 2))
+    X, conn = np.asarray(jt.X), np.asarray(jt.conn)
     calls = {
         "make_model": lambda: t_make_model(nx=4, ny=2, N=2, m=16,
+                                           factor_kind="mg",
                                            lanczos_block=4),
+        "make_model_dense": lambda: t_make_model(nx=4, ny=2, N=2),
+        "NodeFilter_spatial": lambda: NodeFilter(conn, X, r0=0.5),
+        "NodeFilter_helmholtz": lambda: NodeFilter(conn, X, r0=0.5,
+                                                   ftype="helmholtz"),
+        "filter_from_numpy": lambda: filter_from_numpy(
+            conn, X, 0.5, "spatial", (np.zeros((15, 2), np.int64),
+                                      np.ones((15, 2)))),
         "analysis_from_numpy": lambda: analysis_from_numpy(
             np.asarray(jt.x), np.asarray(jt.X), np.asarray(jt.conn),
             np.asarray(f.dvmap), f.num_design_vars, np.asarray(f._kernel),
@@ -130,8 +144,8 @@ def test_entry_points_default_to_the_card(entry):
     }
     if torch.cuda.is_available():
         obj = calls[entry]()
-        t = getattr(obj, "x", None)
-        t = getattr(obj, "W", None) if t is None else t
+        t = next((getattr(obj, a) for a in ("x", "W", "wts", "_Bmat")
+                  if getattr(obj, a, None) is not None), None)
         t = obj.Ws[0] if t is None else t
         assert t.device.type == "cuda"
     else:
