@@ -17,6 +17,7 @@ from .ops.adjoint import (add_eig_total_derivative,
                           generate_adjoint_correction, laa, pcpg, pgmres,
                           sibk)
 from .ops.autodiff import EigProblem, EighGenConfig, eigh_gen, eigh_gen_dense
+from .ops.blockfactor import BCRFactor, BlockTridiagFactor, RefinedFactor
 from .ops.factor import (CGFactor, CholeskyFactor, EighFactor,
                          make_shift_factor)
 from .ops.lanczos import (LanczosResult, block_lanczos_solve,
@@ -39,6 +40,9 @@ __all__ = [
     "CGFactor",
     "make_shift_factor",
     "GridMGFactor",
+    "BlockTridiagFactor",
+    "BCRFactor",
+    "RefinedFactor",
     "LanczosResult",
     "lanczos_iteration",
     "lanczos_solve",

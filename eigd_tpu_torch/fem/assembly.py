@@ -3,10 +3,11 @@ densities.
 
 Counterpart of ``eigd_tpu/fem/assembly.py:28-104,157``: the pieces of the
 assembly that the natural-frequency model uses, including the general
-per-element stiffness and mass matrices of a non-uniform mesh. Every
+per-element stiffness and mass matrices of a non-uniform mesh, and the
+thermal conduction and capacitance matrices (``:132-160``). Every
 function is a plain differentiable tensor function, so the eigh_gen
-backward pass chains through it with ``torch.autograd``. The buckling and
-thermal builders wait for their slices (ROADMAP queue 1, items 13-14).
+backward pass chains through it with ``torch.autograd``. The buckling
+stress stiffness is not ported yet (ROADMAP queue 1, item 14).
 """
 
 from __future__ import annotations
@@ -75,6 +76,26 @@ def mass_matrix(rhoE, He, detJ, dofs, nvars, ptype="linear", q=5.0,
     w = dens[None, :] * detJ  # (nq, ne)
     Me = torch.einsum("qeij,qeil->ejl", He, He * w[:, :, None, None])
     return ElementOperator(Me, dofs, nvars)
+
+
+def thermal_stiffness_matrix(rhoE, Be, detJ, conn, nnodes, kappa=1.0,
+                             beta=0.0, p=3.0):
+    """Heat conduction K as an ElementOperator, with
+    kappa(rho) = kappa0 ((1 - beta) rho^p + beta); Be (nq, nelems, 2, 4)."""
+    k = kappa * ((1.0 - beta) * rhoE**p + beta)
+    BtB = torch.einsum("qeij,qeil->qejl", Be, Be)
+    Ke = torch.einsum("e,qe,qejl->ejl", k, detJ, BtB)
+    return ElementOperator(Ke, conn, nnodes)
+
+
+def thermal_mass_matrix(rhoE, He, detJ, conn, nnodes, density=1.0,
+                        heat_capacity=1.0, beta=0.0):
+    """Heat capacitance M as an ElementOperator, with
+    c(rho) = c0 rho0 ((1 - beta) rho + beta); He (nq, nelems, 4)."""
+    c = heat_capacity * density * ((1.0 - beta) * rhoE + beta)
+    HtH = torch.einsum("qei,qej->qeij", He, He)
+    Me = torch.einsum("e,qe,qeij->eij", c, detJ, HtH)
+    return ElementOperator(Me, conn, nnodes)
 
 
 def element_density(rho, conn):

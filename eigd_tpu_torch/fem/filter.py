@@ -34,21 +34,26 @@ from .quad import thermal_tables
 
 def _spatial_weights(X, r0, kmax=None):
     """Host-side neighbour search -> padded ELL (idx, wts) numpy arrays:
-    the weight of neighbour j of node i is (r0 - d_ij) / sum_j."""
+    the weight of neighbour j of node i is (r0 - d_ij) / sum_j. The search
+    is scipy's ``KDTree`` in parallel over nodes (``query`` with k = the
+    largest neighbour count and a distance bound), with no Python loop
+    over nodes; neighbours come nearest first."""
     from scipy import spatial
 
     tree = spatial.KDTree(X)
-    neighbors = tree.query_ball_tree(tree, r0)
+    counts = tree.query_ball_point(X, r0, return_length=True, workers=-1)
     if kmax is None:
-        kmax = max(len(nb) for nb in neighbors)
-    idx = np.zeros((X.shape[0], kmax), dtype=np.int64)
-    wts = np.zeros((X.shape[0], kmax))
-    for i, nb in enumerate(neighbors):
-        nb = np.asarray(nb, dtype=np.int64)
-        w = r0 - np.linalg.norm(X[i] - X[nb], axis=1)
-        idx[i, :len(nb)] = nb
-        wts[i, :len(nb)] = w / np.sum(w)
-    return idx, wts
+        kmax = int(counts.max())
+    elif kmax < counts.max():
+        raise ValueError(f"kmax={kmax} is below the largest neighbour count "
+                         f"{int(counts.max())}")
+    d, idx = tree.query(X, k=kmax, distance_upper_bound=np.nextafter(
+        r0, np.inf), workers=-1)
+    d, idx = d.reshape(len(X), kmax), idx.reshape(len(X), kmax)
+    keep = d <= r0
+    w = np.where(keep, r0 - np.where(keep, d, r0), 0.0)
+    return np.where(keep, idx, 0).astype(np.int64), w / w.sum(
+        axis=1, keepdims=True)
 
 
 def _helmholtz_matrices(X, conn, r0):

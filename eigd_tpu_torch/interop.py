@@ -16,6 +16,7 @@ import torch
 
 from .fem.filter import NodeFilter
 from .models.natural_frequency import TopologyAnalysis
+from .models.thermal import ThermalTopologyAnalysis
 from .ops.factor import CholeskyFactor
 from .ops.multigrid import GridMGFactor
 from .ops.stencil import GridStencilOperator
@@ -71,6 +72,28 @@ def analysis_from_numpy(x, X, conn, dvmap, num_design_vars, filter_state,
     topo = TopologyAnalysis(fltr, conn, X, grid_shape=grid_shape,
                             uniform_grid=uniform_grid, device=device,
                             **config)
+    topo.x = _t(x, device, torch.float64)
+    return topo
+
+
+def thermal_from_numpy(x, X, conn, element_sets, filter_state, grid_shape,
+                       r0, device="cuda", dvmap=None, num_design_vars=None,
+                       projection=False, beta=10.0, eta=0.5, **config):
+    """A ``ThermalTopologyAnalysis`` on the given state.
+
+    x : design vector; X, conn : the mesh; element_sets : the named element
+    sets; filter_state : the spatial filter's ELL pair (idx, wts), with
+    dvmap, num_design_vars, r0 and the projection fields; grid_shape and
+    ``config`` (the analysis' keyword fields: factor_kind, N, Ntarget, m,
+    sigma, lanczos_*, factor_options, ...).
+    """
+    fltr = filter_from_numpy(conn, X, r0, "spatial", filter_state,
+                             dvmap=dvmap, num_design_vars=num_design_vars,
+                             device=device, projection=projection, beta=beta,
+                             eta=eta)
+    topo = ThermalTopologyAnalysis(fltr, conn, X, element_sets=element_sets,
+                                   grid_shape=grid_shape, device=device,
+                                   **config)
     topo.x = _t(x, device, torch.float64)
     return topo
 

@@ -14,14 +14,17 @@ The reference's three-phase adjoint protocol (``initialize``,
 ``_solve_fn(x)`` where JAX holds its ``jax.vjp`` closure, and pulls the
 accumulated (lamb, Qb) seeds through it with ``torch.autograd.grad``.
 ``MinFreqOpt`` is the reference's KS-aggregated minimum frequency with
-point masses. The block factors (ROADMAP queue 1, item 15) and
-``save_state``/``restore_state`` (item 17) are not ported.
+point masses. The block factors (``factor_kind`` "blocktridiag", "bcr" and
+their "_f32" forms, ``block_factor_fn``) are shared with the thermal
+model. ``save_state``/``restore_state`` (ROADMAP queue 1, item 17) are not
+ported.
 """
 
 from __future__ import annotations
 
 import time
 import warnings
+import weakref
 
 import numpy as np
 import torch
@@ -34,6 +37,61 @@ from ..ops.factor import make_shift_factor
 from ..ops.lanczos import b_orthonormalize_rows, lanczos_solve
 from ..ops.operators import ElementOperator
 from ..ops.stencil import GridStencilOperator
+
+
+def weakly(method):
+    """``method``, called through a weak reference to its object.
+
+    A model's ``EigProblem`` goes into the autograd graph of every solve
+    (``EighGen`` keeps it on its ctx), and the model holds the graph of
+    its last solve for ``finalize_adjoint``. Strongly bound methods would
+    close a cycle through the autograd node, which Python's gc cannot
+    see, and the model and its solve would never be freed."""
+    ref = weakref.WeakMethod(method)
+
+    def call(*args):
+        fn = ref()
+        if fn is None:
+            raise ReferenceError("the model of this solve has been freed")
+        return fn(*args)
+
+    return call
+
+
+BLOCK_FACTOR_KINDS = ("blocktridiag", "blocktridiag_f32", "bcr", "bcr_f32")
+
+
+def block_factor_fn(kind, grid_shape, ndof, refine_options=None):
+    """The ``EigProblem.factor`` of a block factor kind on a grid: the
+    block Cholesky (``blocktridiag``) or cyclic-reduction (``bcr``) factor
+    of the shifted element matrices, in f64; or, for the "_f32" kinds,
+    built from f32 blocks (the f64 blocks are the peak-memory term at 1M
+    DOF) and refined to f64 by a ``RefinedFactor`` (``refine_options``:
+    its tol, max_refine) against the shifted f64 stencil, which runs on K2
+    when the operators carry the kernels' planes."""
+    from ..ops.blockfactor import (BCRFactor, BlockTridiagFactor,
+                                   RefinedFactor, grid_block_tridiag)
+    from ..ops.stencil import stencil_from_elements
+
+    gnx, gny = grid_shape
+    cls_ = BCRFactor if kind.startswith("bcr") else BlockTridiagFactor
+
+    def factor_fn(A, B, sig, mode):
+        shifted = A.mats - sig * B.mats
+        if not kind.endswith("_f32"):
+            return cls_.from_blocks(*grid_block_tridiag(shifted, gnx, gny,
+                                                        ndof=ndof))
+        inner = cls_.from_blocks(*grid_block_tridiag(
+            shifted.to(torch.float32), gnx, gny, ndof=ndof))
+        op = GridStencilOperator(shifted, A.dofs, A.n,
+                                 stencil_from_elements(shifted, gnx, gny,
+                                                       ndof),
+                                 grid_shape, ndof)
+        if getattr(A, "Wp64", None) is not None:
+            op = op.with_kernels()
+        return RefinedFactor(inner, op, **(refine_options or {}))
+
+    return factor_fn
 
 
 class TopologyAnalysis:
@@ -49,14 +107,10 @@ class TopologyAnalysis:
                  factor_options=None, lanczos_polish=0,
                  lanczos_polish_spare=0, lanczos_sweep="exact",
                  kernel_mv="auto", device="cuda"):
-        if factor_kind.startswith(("blocktridiag", "bcr")):
-            raise NotImplementedError(
-                f"factor_kind={factor_kind!r}: the block factors wait for "
-                "ops/blockfactor.py (ROADMAP queue 1, item 15)")
-        if factor_kind not in ("mg", "dense"):
+        if factor_kind not in ("mg", "dense") + BLOCK_FACTOR_KINDS:
             raise ValueError(f"Unknown factor_kind {factor_kind!r}")
-        if factor_kind == "mg" and grid_shape is None:
-            raise ValueError("factor_kind='mg' needs grid_shape")
+        if factor_kind != "dense" and grid_shape is None:
+            raise ValueError(f"factor_kind={factor_kind!r} needs grid_shape")
         self.device = torch.device(device)
         self.fltr = fltr
         # np.array copies: torch.as_tensor warns on read-only arrays
@@ -128,15 +182,18 @@ class TopologyAnalysis:
         factor_fn = None  # dense: make_shift_factor's Cholesky factor
         if factor_kind == "mg":
             mg_opts = dict(factor_options or {})
+            grid = self.grid_shape
 
             def factor_fn(A, B, sig, mode):
                 from ..ops.multigrid import GridMGFactor
 
-                return GridMGFactor.build(A.W - sig * B.W, self.grid_shape,
-                                          2, **mg_opts)
+                return GridMGFactor.build(A.W - sig * B.W, grid, 2, **mg_opts)
+        elif factor_kind in BLOCK_FACTOR_KINDS:
+            factor_fn = block_factor_fn(factor_kind, self.grid_shape, 2,
+                                        factor_options)
 
-        self.problem = EigProblem(assemble=self._assemble,
-                                  nullspace=self._nullspace,
+        self.problem = EigProblem(assemble=weakly(self._assemble),
+                                  nullspace=weakly(self._nullspace),
                                   factor=factor_fn)
         self.x = 0.95 * torch.ones(self.fltr.num_design_vars,
                                    dtype=torch.float64, device=self.device)
@@ -214,8 +271,10 @@ class TopologyAnalysis:
 
     def initialize(self, store=False):
         """Solve at ``self.x`` and hold the autograd graph of the solve for
-        ``finalize_adjoint``; eigenvector signs follow the previous solve."""
+        ``finalize_adjoint``; eigenvector signs follow the previous solve.
+        The previous graph is released first, so two never coexist."""
         t0 = time.perf_counter()
+        self._graph = None
         x = self.x.detach().requires_grad_(True)
         with torch.enable_grad():
             lam, Q, rho, rhoE = self._solve_fn(x)
@@ -252,13 +311,14 @@ class TopologyAnalysis:
 
     def finalize_adjoint(self):
         """xb += the seeds (lamb, Qb) pulled through the graph that
-        ``initialize`` holds; the graph is freed, so this runs once per
-        ``initialize``."""
+        ``initialize`` holds. The graph is kept until the next
+        ``initialize`` (as JAX keeps its ``_vjp`` closure), so any number
+        of adjoint passes may follow one solve."""
         t0 = time.perf_counter()
         x, lam, Q = self._graph
-        self._graph = None
         (xb,) = torch.autograd.grad(
-            (lam, Q), x, (self.lamb, self.Qb * self._signs[None, :]))
+            (lam, Q), x, (self.lamb, self.Qb * self._signs[None, :]),
+            retain_graph=True)
         self.xb = self.xb + xb
         self.profile["adjoint solution time"] = self._elapsed(t0)
 

@@ -21,8 +21,10 @@ from eigd_tpu.models.natural_frequency import make_model as j_make_model
 from eigd_tpu_torch.fem.filter import NodeFilter
 from eigd_tpu_torch.interop import (analysis_from_numpy, filter_from_numpy,
                                     mg_factor_from_numpy,
-                                    stencil_operator_from_numpy)
+                                    stencil_operator_from_numpy,
+                                    thermal_from_numpy)
 from eigd_tpu_torch.models.natural_frequency import make_model as t_make_model
+from eigd_tpu_torch.models.thermal import make_model as t_thermal_model
 from eigd_tpu_torch.ops import cuda_stencil, sync
 
 torch.set_num_threads(1)
@@ -95,10 +97,13 @@ def t_value_and_grad(topo):
 def test_port_imports_no_jax():
     code = ("import sys; import eigd_tpu_torch, eigd_tpu_torch.interop, "
             "eigd_tpu_torch.models.natural_frequency, "
+            "eigd_tpu_torch.models.thermal, eigd_tpu_torch.ops.blockfactor, "
             "eigd_tpu_torch.ops.autodiff, eigd_tpu_torch.ops.cuda_probes, "
             "eigd_tpu_torch.diag.common, eigd_tpu_torch.diag.stencil_floor, "
             "eigd_tpu_torch.diag.stencil_dma, eigd_tpu_torch.diag.profile, "
             "eigd_tpu_torch.diag.build_time, "
+            "eigd_tpu_torch.diag.protocol_peak, "
+            "eigd_tpu_torch.diag.f32_shift, "
             "eigd_tpu_torch.diag.stencil_host, chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'eigd_tpu.')) or m == 'eigd_tpu']; "
@@ -112,7 +117,9 @@ def test_port_imports_no_jax():
                                    "NodeFilter_helmholtz",
                                    "analysis_from_numpy", "filter_from_numpy",
                                    "stencil_operator_from_numpy",
-                                   "mg_factor_from_numpy"])
+                                   "mg_factor_from_numpy",
+                                   "thermal_make_model",
+                                   "thermal_from_numpy"])
 def test_entry_points_default_to_the_card(entry):
     """With no device given, an entry point builds on the card: on a
     machine without one it fails on the first CUDA allocation and never
@@ -141,6 +148,11 @@ def test_entry_points_default_to_the_card(entry):
             W, None, None, 30, (4, 2), 2),
         "mg_factor_from_numpy": lambda: mg_factor_from_numpy(
             [W], [np.ones(30)], [1.0], np.eye(30), W, [(4, 2)], 2),
+        "thermal_make_model": lambda: t_thermal_model(nx=4, ny=2, N=2,
+                                                      factor_kind="mg"),
+        "thermal_from_numpy": lambda: thermal_from_numpy(
+            np.ones(15), X, conn, {}, (np.zeros((15, 2), np.int64),
+                                       np.ones((15, 2))), (4, 2), 0.5, N=2),
     }
     if torch.cuda.is_available():
         obj = calls[entry]()
