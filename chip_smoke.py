@@ -38,7 +38,15 @@ then drives these paths:
 * the same model on the cyclic-reduction factors (``[thermal-bcr]``):
   the f64 one held to the multigrid eigenvalues and gradient, the f32
   refined one measured beside it; and the 263k bench configuration on
-  the f32 refined factor (``[nf-bcr]``) against ``[main]``.
+  the f32 refined factor (``[nf-bcr]``) against ``[main]``;
+* the buckling family at 512x256 (263,682 DOF, ``[buckle]``) on the f64
+  cyclic-reduction factor, the shift from a dense 32x16 pilot: K2 on the
+  model's masked K and G checked and counted, the protocol with two
+  adjoint passes on one solve, the true pencil residuals, a Richardson
+  check and forward mode against reverse mode; the block-tridiagonal
+  factor against it, the f32 refined factor against the f64 one at
+  128x64 (and measured at 512x256), and examples/buckling.py's dense flow
+  with each adjoint method.
 
 Each phase's wall time is printed as ``[time]``.
 
@@ -709,32 +717,38 @@ def thermal_opt(topo):
     return ThermalOpt(topo, heat, nsteps=100, tfinal=2.0)
 
 
-def timed_factor(topo, built):
-    """Wrap the model's factor build: each build appends (seconds, stored
-    bytes) to ``built``."""
-    import dataclasses
-
-    build, device = topo.problem.factor, topo.device  # no cycle via topo
-
-    def factor_fn(A, B, sig, mode):
+def timed_build(build, device, built):
+    """``build`` wrapped: each call appends (seconds, stored bytes) to
+    ``built``."""
+    def wrapped(*args):
         sync_device(device)
         t0 = time.perf_counter()
-        f = build(A, B, sig, mode)
+        f = build(*args)
         sync_device(device)
         inner = getattr(f, "inner", f)
         built.append((time.perf_counter() - t0,
                       getattr(inner, "nbytes", float("nan"))))
         return f
 
-    topo.problem = dataclasses.replace(topo.problem, factor=factor_fn)
+    return wrapped
 
 
-def stencil_row_nd1(W, nx, ny, k, dtype, gen):
+def timed_factor(topo, built):
+    """Wrap the model's factor build: each build appends (seconds, stored
+    bytes) to ``built``."""
+    import dataclasses
+
+    topo.problem = dataclasses.replace(topo.problem, factor=timed_build(
+        topo.problem.factor, topo.device, built))
+
+
+def stencil_row_nd1(W, nx, ny, k, dtype, gen, nd=1, what=""):
     """K1 (f32, plane layout, as the V-cycle calls it) or K2 (f64, vector
     layout, as the f64 PCG residual and the solver's A.mv/B.mv call it) on
-    the scalar stencil W at k columns: against its twin (K1 1e-5 of
-    max|ref|, K2 1e-13 of 9 max|x| max|W|), graph-timed beside its bound
-    and twin, with SpMM on the same stencil by events."""
+    the stencil W (the scalar one by default; ``nd`` DOFs a node) at k
+    columns: against its twin (K1 1e-5 of max|ref|, K2 1e-13 of 9 nd
+    max|x| max|W|), graph-timed beside its bound and twin, with SpMM on
+    the same stencil by events. ``what`` names the operator."""
     from eigd_tpu_torch.diag.common import (line, stencil_csr, stencil_work,
                                             timed)
     from eigd_tpu_torch.ops import cuda_stencil as cs
@@ -742,35 +756,35 @@ def stencil_row_nd1(W, nx, ny, k, dtype, gen):
 
     X, Y = nx + 1, ny + 1
     if dtype == torch.float32:
-        Wp = cs.stencil_planes(W, 1)
-        xq = torch.randn((1, k, X, Y), generator=gen).cuda()
-        xv = cs.from_planes(xq, nx, ny, 1).contiguous()
+        Wp = cs.stencil_planes(W, nd)
+        xq = torch.randn((nd, k, X, Y), generator=gen).cuda()
+        xv = cs.from_planes(xq, nx, ny, nd).contiguous()
 
         def kern():
-            return cs.matvec_planes(Wp, xq, nx, ny, 1)
+            return cs.matvec_planes(Wp, xq, nx, ny, nd)
 
         def plain():
-            return cs.matvec_planes_ref(Wp, xq, nx, ny, 1)
-        name, itemsize = f"K1 {X}x{Y} ndof 1 k {k}", 4
+            return cs.matvec_planes_ref(Wp, xq, nx, ny, nd)
+        name, itemsize = f"K1 {X}x{Y} ndof {nd} k {k}{what}", 4
     else:
-        Wp = cs.stencil_planes(W, 1, torch.float64)
-        xv = torch.randn((X * Y, k), generator=gen,
+        Wp = cs.stencil_planes(W, nd, torch.float64)
+        xv = torch.randn((X * Y * nd, k), generator=gen,
                          dtype=torch.float64).cuda()
 
         def kern():
-            return cs.stencil_matvec64(Wp, xv, nx, ny, 1)
+            return cs.stencil_matvec64(Wp, xv, nx, ny, nd)
 
         def plain():
-            return stencil_matvec(W, xv, nx, ny, 1)
-        name, itemsize = f"K2 {X}x{Y} ndof 1 k {k}", 8
+            return stencil_matvec(W, xv, nx, ny, nd)
+        name, itemsize = f"K2 {X}x{Y} ndof {nd} k {k}{what}", 8
     got, ref = kern(), plain()
     torch.cuda.synchronize()
     err = float((got - ref).abs().max())
     tol = (1e-5 * float(ref.abs().max()) if dtype == torch.float32 else
-           1e-13 * 9 * float(xv.abs().max()) * float(W.abs().max()))
-    A = stencil_csr(W, nx, ny, 1, dtype)
+           1e-13 * 9 * nd * float(xv.abs().max()) * float(W.abs().max()))
+    A = stencil_csr(W, nx, ny, nd, dtype)
     r = timed(name, kern, plain, lambda: torch.sparse.mm(A, xv),
-              *stencil_work(X, Y, 1, k, itemsize), dtype,
+              *stencil_work(X, Y, nd, k, itemsize), dtype,
               library_in_graph=False)
     log(f"{line(r)}  max_abs_err {err:.3e} (bound {tol:.3e})")
     check(err <= tol, f"{name} disagrees with its twin")
@@ -1060,6 +1074,346 @@ def phase_nf_bcr(gpu, val_main, proj_main, device="cuda", config=None):
     check(gap <= 1e-7, "[nf-bcr] objective off the converged one")
 
 
+# ---------------------------------------------------------------------------
+# The buckling family at 263,682 DOF
+# ---------------------------------------------------------------------------
+
+BUCKLE_GRID = (512, 256)
+BUCKLE_KS_RHO = 100.0
+
+
+def buckle_pilot(device="cuda"):
+    """BLF_1 of the dense pilot model (diag.configs.BUCKLE_PILOT, 32x16)
+    from its full pencil, and the shift SIGMA_MARGIN below it."""
+    from eigd_tpu_torch.diag.configs import BUCKLE_PILOT, SIGMA_MARGIN
+    from eigd_tpu_torch.models.buckling import first_blf, make_buckling_model
+
+    pilot = make_buckling_model(sigma=1.0, device=device, **BUCKLE_PILOT)
+    blf1 = first_blf(pilot)
+    return blf1, SIGMA_MARGIN * blf1
+
+
+def buckle_model(sigma, grid, factor_kind, device):
+    from eigd_tpu_torch.diag.configs import buckle_263k
+    from eigd_tpu_torch.models.buckling import make_buckling_model
+
+    nx, ny = grid
+    return make_buckling_model(device=device, **dict(
+        buckle_263k(sigma, factor_kind), nx=nx, ny=ny))
+
+
+def buckle_dofs(grid):
+    """The y-DOFs of the loaded right-edge nodes: the aggregate's set."""
+    from eigd_tpu_torch.fem.model import make_grid
+    from eigd_tpu_torch.models.buckling import load_nodes
+
+    nx, ny = grid
+    return [2 * nd + 1 for nd in load_nodes(make_grid(nx, ny, 2.0, 1.0))]
+
+
+def buckle_value(topo, dofs):
+    """The first pass's objective: KS of 1/BLF plus the eigenvector
+    aggregate (rho 1) over ``dofs``."""
+    return (float(topo.eval_ks_buckling(BUCKLE_KS_RHO))
+            + float(topo.get_eigenvector_aggregate(1.0, dofs)))
+
+
+def timed_buckle_factors(topo, built):
+    """``timed_factor`` for both factors of a buckling model: the pencil's
+    builds go to ``built["pencil"]``, the static solve's to
+    ``built["K"]``."""
+    built["pencil"], built["K"] = [], []
+    timed_factor(topo, built["pencil"])
+    topo._K_factor_w = timed_build(topo._K_factor_w, topo.device, built["K"])
+
+
+def buckle_protocol(topo, dofs, tag, gpu, hold=True):
+    """initialize; the KS and aggregate seeds in one adjoint pass; the
+    aggregate-max seeds (rho 20) in a second pass on the same solve.
+    Prints the load factors, compliance, the time of each step, peak,
+    launches and host syncs by loop; with ``hold`` fails on load factors
+    that are not finite, positive and ascending or an xb that is not
+    finite. Returns (xb of the first pass, launches)."""
+    from eigd_tpu_torch.ops import sync
+
+    times = {}
+
+    def step(name, fn, *args):
+        sync_device(topo.device)
+        t0 = time.perf_counter()
+        fn(*args)
+        sync_device(topo.device)
+        times[name] = time.perf_counter() - t0
+
+    counters_zero(topo.device)
+    step("initialize", topo.initialize)
+    fwd = collections.Counter(sync.HOST_SYNCS)
+    step("initialize_adjoint", topo.initialize_adjoint)
+    step("add KS", topo.add_ks_buckling_derivative, 1.0, BUCKLE_KS_RHO)
+    step("add aggregate", topo.add_eigenvector_aggregate_derivative, 1.0,
+         1.0, dofs)
+    step("finalize_adjoint", topo.finalize_adjoint)
+    xb = topo.xb.clone()
+    step("initialize_adjoint (2)", topo.initialize_adjoint)
+    step("add aggregate max",
+         topo.add_eigenvector_aggregate_max_derivative, 1.0, 20.0, dofs)
+    step("finalize_adjoint (2)", topo.finalize_adjoint)
+    launches = launches_now()
+    peak = peak_gib(topo.device)
+    blf = topo.BLF.cpu().numpy()
+    log(f"[{tag}] {topo.nvars} DOF  sigma {topo.sigma!r}  BLF "
+        f"{blf.tolist()}  compliance {float(topo.compliance())!r}")
+    log(f"[{tag}] " + "  ".join(f"{k} {v:.3f} s" for k, v in times.items())
+        + f"  (second pass on the same initialize)  peak {peak:.3f} GiB  K1 "
+        f"launches {launches['K1']}  K2 launches {launches['K2']}  on {gpu}")
+    log(f"[{tag}] host syncs by loop: initialize {dict(fwd)}  both adjoint "
+        f"passes {dict(sync.HOST_SYNCS - fwd)}  exits "
+        f"{dict(sync.LOOP_EXITS)}")
+    if hold:
+        check(np.all(np.isfinite(blf)) and np.all(blf > 0.0)
+              and np.all(np.diff(blf) >= 0.0),
+              f"[{tag}] load factors not finite, positive and ascending")
+        check(bool(torch.isfinite(xb).all()
+                   and torch.isfinite(topo.xb).all()),
+              f"[{tag}] xb not finite")
+    return xb, launches
+
+
+def pencil_residuals(topo):
+    """||K phi_i + lam_i G phi_i|| / ||K phi_i|| of the solved pairs, on
+    the plain operators at the design."""
+    from eigd_tpu_torch.fem.assembly import element_density
+
+    with torch.no_grad():
+        rhoE = element_density(topo.fltr.apply(topo.x), topo.conn)
+        u, _ = topo._static(rhoE)
+        G, K = topo._assemble_pencil((rhoE, u))
+        KQ, GQ = K.mv(topo.Qr), G.mv(topo.Qr)
+        r = torch.linalg.norm(KQ + GQ * topo.lam[None, :], dim=0)
+        return (r / torch.linalg.norm(KQ, dim=0)).cpu().numpy()
+
+
+def buckle_rows(topo, gen):
+    """K2 against its twin on the model's masked K-hat (unit diagonal on
+    the clamped edge) and G at the design, k 1 (Lanczos) and k N (the
+    adjoint blocks)."""
+    from eigd_tpu_torch.fem.assembly import element_density
+
+    with torch.no_grad():
+        rhoE = element_density(topo.fltr.apply(topo.x), topo.conn)
+        u, _ = topo._static(rhoE)
+        G, K = topo._assemble_pencil((rhoE, u))
+    nx, ny = topo.grid_shape
+    rows = [stencil_row_nd1(op.W, nx, ny, k, torch.float64, gen, nd=2,
+                            what=f" {name}")
+            for name, op in (("K-hat", K), ("G", G)) for k in (1, topo.N)]
+    return {r["name"]: r for r in rows}
+
+
+def buckle_dense(gpu, device, grid=(24, 12)):
+    """examples/buckling.py's flow with each adjoint method: the 12x6
+    pilot, the dense model at 24x12 (N 4, sigma 0.8 BLF_1), the KS
+    gradient (no eigenvector seeds, so every method's psi is zero) against
+    a central difference (h 1e-6, bound 5e-6, as tests/test_buckling.py
+    holds it); then the eigenvector aggregate of tests/test_buckling.py
+    (rho 1, DOFs 11 and 29), whose adjoint each method solves, held the
+    same way for the exact methods and printed for laa (a Galerkin
+    guess, not an exact adjoint)."""
+    from eigd_tpu_torch.models.buckling import first_blf, make_buckling_model
+
+    sigma = 0.8 * first_blf(make_buckling_model(nx=12, ny=6, N=4, sigma=1.0,
+                                                device=device))
+    nx, ny = grid
+    node = [11, 29]
+    objectives = {
+        "KS": (lambda t: t.add_ks_buckling_derivative(1.0, ks_rho=100.0),
+               lambda t: t.eval_ks_buckling(ks_rho=100.0)),
+        "aggregate": (
+            lambda t: t.add_eigenvector_aggregate_derivative(1.0, 1.0, node),
+            lambda t: t.get_eigenvector_aggregate(1.0, node))}
+    for method in ("sibk", "laa", "pgmres", "pcpg"):
+        t0 = time.perf_counter()
+        topo = make_buckling_model(nx=nx, ny=ny, N=4, sigma=sigma,
+                                   adjoint_method=method, device=device)
+        x0 = topo.x
+        pert = torch.as_tensor(np.random.default_rng(0).uniform(
+            size=x0.shape), device=x0.device)
+        out = []
+        for name, (seed, value) in objectives.items():
+            topo.x = x0
+            topo.initialize()
+            topo.initialize_adjoint()
+            seed(topo)
+            topo.finalize_adjoint()
+            ans = float(pert @ topo.xb)
+            vals = []
+            for sgn in (1.0, -1.0):
+                topo.x = x0 + sgn * 1e-6 * pert
+                topo.initialize()
+                vals.append(float(value(topo)))
+            fd = (vals[0] - vals[1]) / 2e-6
+            rel = abs(ans - fd) / abs(fd)
+            held = name == "KS" or method != "laa"
+            out.append(f"{name} {ans!r} FD {fd!r} rel {rel:.3e}"
+                       + (" (bound 5e-6)" if held else " (not held)"))
+            if held:
+                check(rel <= 5e-6, f"[buckle dense] {method} {name} fails "
+                                   f"the FD check")
+        topo.x = x0
+        log(f"[buckle dense] {nx}x{ny} ({topo.nvars} DOF) {method}: "
+            f"{'; '.join(out)} in {time.perf_counter() - t0:.2f} s on {gpu}")
+
+
+def buckle_against(ref, kind, grid, sigma, dofs, pert, gpu, device, tol_lam,
+                   tol_proj, tag):
+    """The model on factor ``kind`` at ``grid`` against ``ref`` = (BLF,
+    projected first-pass gradient): relative gaps, held to the bounds
+    when ``tol_lam`` is set. Returns the gaps."""
+    from eigd_tpu_torch.ops import sync
+
+    t0 = time.perf_counter()
+    topo = buckle_model(sigma, grid, kind, device)
+    log(f"[{tag}] model built in {time.perf_counter() - t0:.2f} s")
+    built = {}
+    timed_buckle_factors(topo, built)
+    xb, _ = buckle_protocol(topo, dofs, tag, gpu, hold=tol_lam is not None)
+    blf = topo.BLF.cpu().numpy()
+    gap = float(np.max(np.abs(blf - ref[0]) / np.abs(ref[0])))
+    proj = float(pert @ xb)
+    rel = abs(proj - ref[1]) / abs(ref[1])
+    passes = sync.LOOP_STEPS["refine"]
+    applies = sum(v for k, v in sync.LOOP_EXITS.items()
+                  if k.startswith("refine."))
+    held = ("" if tol_lam is None else
+            f" (bounds {tol_lam:g}, {tol_proj:g})")
+    log(f"[{tag}] pencil factor built in {built['pencil'][0][0]:.3f} s "
+        f"(K's in {built['K'][0][0]:.3f} s); BLF rel gap {gap:.3e}, "
+        f"projected gradient {proj!r} vs {ref[1]!r} rel {rel:.3e}{held}; "
+        f"refinement passes "
+        f"{passes} in {applies} applies, exits "
+        f"{ {k: v for k, v in sync.LOOP_EXITS.items() if 'refine' in k} }")
+    if tol_lam is not None:
+        check(gap <= tol_lam, f"[{tag}] load factors disagree")
+        check(rel <= tol_proj, f"[{tag}] projected gradient disagrees")
+    return gap, rel
+
+
+def phase_buckle(gpu, gen, grid=BUCKLE_GRID, small=(128, 64),
+                 dense_grid=(24, 12), device="cuda"):
+    """The buckling family at 512x256 (263,682 DOF) on the f64 BCR factor:
+    the dense pilot places the shift; K2 against its twin on the model's
+    K-hat and G; the protocol (``buckle_protocol``), its K2 launches
+    counted; the true pencil residuals (bound 1e-8); xb of the first pass
+    against a Richardson-4 central difference (h 2e-3, 1e-3; bound 1e-4)
+    and against forward mode through ``staged_jvp`` over
+    x -> (rhoE, u) -> eigh_gen -> objective (bound 1e-5). Then the same
+    model on the f64 block-tridiagonal factor (BLF 1e-10, projected
+    gradient 1e-8), ``bcr_f32`` against ``bcr`` at 128x64 (1e-8, 1e-6),
+    ``bcr_f32`` at 512x256 measured beside ``bcr`` (printed, not held:
+    cond(K + sigma G) eps32 is about 3 there, PERF.md), and
+    examples/buckling.py's dense flow with each adjoint method. Returns
+    the launches and the K2 rows."""
+    from eigd_tpu_torch.fem.assembly import element_density
+    from eigd_tpu_torch.ops.autodiff import staged_jvp
+
+    t0 = time.perf_counter()
+    blf1, sigma = buckle_pilot(device)
+    log(f"[buckle] pilot 32x16 (dense): BLF_1 {blf1!r}, sigma {sigma!r} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    topo = buckle_model(sigma, grid, "bcr", device)
+    log(f"[buckle] model built in {time.perf_counter() - t0:.2f} s")
+    rows = buckle_rows(topo, gen) if device == "cuda" else {}
+    built = {}
+    timed_buckle_factors(topo, built)
+    dofs = buckle_dofs(grid)
+    xb, launches = buckle_protocol(topo, dofs, "buckle", gpu)
+    (tk, bk), (tp, bp) = built["K"][0], built["pencil"][0]
+    log(f"[buckle] factors: K's built in {tk:.3f} s, stores "
+        f"{bk / 2**30:.3f} GiB; the pencil's built in {tp:.3f} s, stores "
+        f"{bp / 2**30:.3f} GiB")
+    check(launches["K2"] > 0, "[buckle] launched no K2")
+    blf = topo.BLF.cpu().numpy()
+    res = pencil_residuals(topo)
+    log(f"[buckle] pencil residuals ||K phi + lam G phi|| / ||K phi||: "
+        f"{res.tolist()} (bound 1e-8)")
+    check(float(res.max()) <= 1e-8, "[buckle] pencil residuals too large")
+
+    # the KS seeds alone, a third pass on the same solve: the FD quotients
+    # of the two terms are printed apart
+    topo.initialize_adjoint()
+    topo.add_ks_buckling_derivative(1.0, ks_rho=BUCKLE_KS_RHO)
+    topo.finalize_adjoint()
+    pert = bench_direction(topo)
+    ans = float(pert @ xb)
+    ans_ks = float(pert @ topo.xb)
+    x0 = topo.x
+    fds = {}
+    for h in (2e-3, 1e-3):
+        vals = []
+        for sgn in (1.0, -1.0):
+            topo.x = x0 + sgn * h * pert
+            topo.initialize()
+            vals.append(np.array([
+                float(topo.eval_ks_buckling(BUCKLE_KS_RHO)),
+                float(topo.get_eigenvector_aggregate(1.0, dofs))]))
+            log(f"[buckle] FD point {sgn * h:+g}: BLF_1 "
+                f"{float(topo.BLF[0])!r}")
+        fds[h] = (vals[0] - vals[1]) / (2 * h)  # (KS, aggregate)
+    topo.x = x0
+    fd4 = (4.0 * fds[1e-3] - fds[2e-3]) / 3.0
+    rel = abs(ans - fd4.sum()) / abs(fd4.sum())
+    parts = (("KS", ans_ks, float(fd4[0])),
+             ("aggregate", ans - ans_ks, float(fd4[1])))
+    log(f"[buckle] FD check of the first pass's xb: adjoint {ans!r} "
+        f"richardson-4 {float(fd4.sum())!r} rel {rel:.3e} (bound 1e-4); plain "
+        f"h=2e-3 {abs(ans - fds[2e-3].sum()) / abs(fds[2e-3].sum()):.3e}, "
+        f"h=1e-3 {abs(ans - fds[1e-3].sum()) / abs(fds[1e-3].sum()):.3e}; "
+        "by term (printed): " + "; ".join(
+            f"{name} adjoint {a!r} richardson-4 {f!r} (abs {abs(a - f):.3e})"
+            for name, a, f in parts))
+    check(rel <= 1e-4, "[buckle] xb fails the FD check")
+
+    def pre(x):
+        rhoE = element_density(topo.fltr.apply(x), topo.conn)
+        return rhoE, topo._static(rhoE)[0]
+
+    node = topo._nodes(dofs)
+
+    def tail(lam, Q):
+        return topo._ks(lam, BUCKLE_KS_RHO) + topo._aggregate(
+            lam, Q, 1.0, node, "tanh")
+
+    t0 = time.perf_counter()
+    _, dv = staged_jvp(pre, tail, topo.problem, topo.cfg)(x0, pert)
+    t_jvp = time.perf_counter() - t0
+    rel = abs(ans - float(dv)) / abs(float(dv))
+    log(f"[buckle] jvp-vs-vjp: vjp {ans!r} jvp {float(dv)!r} rel {rel:.3e} "
+        f"(bound 1e-5); staged_jvp {t_jvp:.2f} s")
+    check(rel <= 1e-5, "[buckle] jvp disagrees with the reverse mode")
+    ref = (blf, ans)
+    del topo
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    buckle_against(ref, "blocktridiag", grid, sigma, dofs, pert, gpu,
+                   device, 1e-10, 1e-8, "buckle blocktridiag")
+    gc.collect()
+    buckle_against(ref, "bcr_f32", grid, sigma, dofs, pert, gpu, device,
+                   None, None, "buckle bcr_f32")
+    gc.collect()
+    sdofs = buckle_dofs(small)
+    topo = buckle_model(sigma, small, "bcr", device)
+    xs, _ = buckle_protocol(topo, sdofs, f"buckle {small[0]}x{small[1]}", gpu)
+    spert = bench_direction(topo)
+    sref = (topo.BLF.cpu().numpy(), float(spert @ xs))
+    del topo
+    buckle_against(sref, "bcr_f32", small, sigma, sdofs, spert, gpu, device,
+                   1e-8, 1e-6, f"buckle {small[0]}x{small[1]} bcr_f32")
+    buckle_dense(gpu, device, dense_grid)
+    return launches, rows
+
+
 def kernel_entry(name, source, replaces, launches, rep, **extra):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1115,6 +1469,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     phase("nf-bcr", phase_nf_bcr, gpu, val_main, proj_main)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lbk, sbk = phase("buckle", phase_buckle, gpu, gen)
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     rows = {r["name"]: r for r in probe_rows}
@@ -1140,11 +1497,14 @@ def main():
                      s263["K2 513x257 ndof 2 k 16"],
                      launches_by_path={"263k": l263["K2"], "1m": l1m["K2"],
                                        "minfreq": lmf["K2"],
-                                       "thermal1m": lth["K2"]},
+                                       "thermal1m": lth["K2"],
+                                       "buckle": lbk["K2"]},
                      at_1m={k: s1m["K2 1025x513 ndof 2 k 6"][k] for k in at},
                      at_thermal1m=[{"name": r["name"], **{k: r[k] for k in at}}
                                    for n, r in sth.items()
-                                   if n.startswith("K2")]),
+                                   if n.startswith("K2")],
+                     at_buckle=[{"name": r["name"], **{k: r[k] for k in at}}
+                                for r in sbk.values()]),
         kernel_entry("K3 stencil floor probe (noshift9; 1040x513, C 16)",
                      "eigd_tpu_torch/csrc/probes.cu",
                      "scripts/diag_pallas_floor.py:87",

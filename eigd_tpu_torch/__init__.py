@@ -16,7 +16,8 @@ from .ops.adjoint import (add_eig_total_derivative,
                           eval_adjoint_residual_norm,
                           generate_adjoint_correction, laa, pcpg, pgmres,
                           sibk)
-from .ops.autodiff import EigProblem, EighGenConfig, eigh_gen, eigh_gen_dense
+from .ops.autodiff import (EigProblem, EighGenConfig, eigh_gen,
+                           eigh_gen_dense, solve_spd)
 from .ops.blockfactor import BCRFactor, BlockTridiagFactor, RefinedFactor
 from .ops.factor import (CGFactor, CholeskyFactor, EighFactor,
                          make_shift_factor)
@@ -59,4 +60,5 @@ __all__ = [
     "EighGenConfig",
     "eigh_gen",
     "eigh_gen_dense",
+    "solve_spd",
 ]

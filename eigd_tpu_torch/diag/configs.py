@@ -1,11 +1,15 @@
-"""The two configurations of ``bench.py`` that the port drives on the card,
-and the bench objective.
+"""The configurations that the port drives on the card: the two of
+``bench.py`` with the bench objective, and the buckling one.
 
 ``bench_263k``: the 512x256 problem (263,682 DOF) of ``bench.py:77-255``.
 ``bench_1m``: the 1024x512 north-star problem (1,051,650 DOF) of its big
 branch (``bench.py:80-155``): adaptive Lanczos exit, block 8, polish 2 with
 no spare, PCG stagnation exits, the approx sweep at approx_rtol and
 adjoint rtol 1e-7. Both run the V-cycle on the kernels. Nothing is cut.
+``buckle_263k``: JAX's ``make_buckling_model`` at the same 512x256 grid
+(263,682 DOF) on the f64 cyclic-reduction factor, every other option at
+its default (spatial filter, m 60, single-vector Lanczos, SIBK), with the
+shift from a dense pilot at 32x16 (``BUCKLE_PILOT``, ``SIGMA_MARGIN``).
 """
 
 from __future__ import annotations
@@ -41,6 +45,18 @@ def bench_1m():
 
 
 CONFIGS = {"263k": bench_263k, "1m": bench_1m}
+
+# the dense model that estimates the first load factor, and the margin of
+# the shift below it (examples/buckling.py)
+BUCKLE_PILOT = dict(nx=32, ny=16, Lx=2.0, Ly=1.0, rfact=2.0, N=6,
+                    load_frac=0.2)
+SIGMA_MARGIN = 0.8
+
+
+def buckle_263k(sigma, factor_kind="bcr"):
+    """make_buckling_model's keywords at 512x256 with the shift sigma."""
+    return dict(nx=512, ny=256, Lx=2.0, Ly=1.0, rfact=2.0, N=6,
+                load_frac=0.2, factor_kind=factor_kind, sigma=sigma)
 
 
 def tail(lam, Q):

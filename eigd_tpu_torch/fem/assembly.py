@@ -1,13 +1,14 @@
 """Material interpolation, DOF maps, plane-stress assembly and element
 densities.
 
-Counterpart of ``eigd_tpu/fem/assembly.py:28-104,157``: the pieces of the
-assembly that the natural-frequency model uses, including the general
-per-element stiffness and mass matrices of a non-uniform mesh, and the
-thermal conduction and capacitance matrices (``:132-160``). Every
-function is a plain differentiable tensor function, so the eigh_gen
-backward pass chains through it with ``torch.autograd``. The buckling
-stress stiffness is not ported yet (ROADMAP queue 1, item 14).
+Counterpart of ``eigd_tpu/fem/assembly.py``: the plane-stress stiffness
+and mass matrices (including the general per-element ones of a
+non-uniform mesh), the geometric (stress) stiffness of buckling
+(``:108-128``) and the thermal conduction and capacitance matrices
+(``:132-160``). Every function is a plain differentiable tensor
+function, so the eigh_gen backward pass chains through it with
+``torch.autograd`` (the stress stiffness in both its density and its
+displacement argument).
 """
 
 from __future__ import annotations
@@ -76,6 +77,22 @@ def mass_matrix(rhoE, He, detJ, dofs, nvars, ptype="linear", q=5.0,
     w = dens[None, :] * detJ  # (nq, ne)
     Me = torch.einsum("qeij,qeil->ejl", He, He * w[:, :, None, None])
     return ElementOperator(Me, dofs, nvars)
+
+
+def stress_stiffness_matrix(rhoE, u, Be, Te, detJ, dofs, conn, nvars, C0,
+                            ptype="simp", p=3.0, q=5.0, rho0=1e-9):
+    """G(rhoE, u) as an ElementOperator: the element stresses
+    s = c(rhoE) C0 Be u_e at each quadrature point, contracted against the
+    Te tables into a (4, 4) block that goes on both the x-x and the y-y
+    DOFs. u is the full displacement vector (nvars,)."""
+    c = stiffness_interp(rhoE, ptype=ptype, p=p, q=q, rho0=rho0)
+    ue = u[dofs]  # (nelems, 8)
+    s = torch.einsum("e,ik,qekl,el->qei", c, C0, Be, ue)  # (nq, ne, 3)
+    G0 = torch.einsum("qe,qei,qeijl->ejl", detJ, s, Te)  # (ne, 4, 4)
+    Ge = G0.new_zeros((conn.shape[0], 8, 8))
+    Ge[:, 0::2, 0::2] += G0
+    Ge[:, 1::2, 1::2] += G0
+    return ElementOperator(Ge, dofs, nvars)
 
 
 def thermal_stiffness_matrix(rhoE, Be, detJ, conn, nnodes, kappa=1.0,

@@ -1,7 +1,8 @@
 """Structured-grid mesh factories for the example problems.
 
 Host-side setup code (runs once, plain numpy): node coordinates, element
-connectivity, symmetry design-variable maps, and node/element sets. A copy
+connectivity, symmetry design-variable maps, node/element sets and the
+cantilever boundary of buckling. A copy
 of ``eigd_tpu/fem/model.py``: importing that module would import JAX
 through the ``eigd_tpu`` package, and this package never does. The outputs
 are numpy arrays that the torch compute path moves to its device.
@@ -124,3 +125,18 @@ def make_symmetric_dvmap_with_sets(mesh: GridMesh, Mx=3, My=3, ns=2,
                 index += 1
 
     return dvmap.reshape(-1), index, node_sets, element_sets
+
+
+def cantilever_bcs(mesh: GridMesh, side="left"):
+    """Dirichlet boundary: clamp both DOFs of every node on one edge.
+    Returns the free-DOF indices (int32)."""
+    nvars = 2 * mesh.nnodes
+    fixed = np.zeros(nvars, dtype=bool)
+    edges = {"left": mesh.nodes[0, :], "right": mesh.nodes[-1, :],
+             "bottom": mesh.nodes[:, 0], "top": mesh.nodes[:, -1]}
+    if side not in edges:
+        raise ValueError(side)
+    edge = edges[side]
+    fixed[2 * edge] = True
+    fixed[2 * edge + 1] = True
+    return np.nonzero(~fixed)[0].astype(np.int32)

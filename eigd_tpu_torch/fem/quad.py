@@ -1,7 +1,8 @@
 """Bilinear quad (Q4) element tables, batched over all elements.
 
-Counterpart of ``eigd_tpu/fem/quad.py`` (the plane-stress tables and the
-scalar tables of the Helmholtz filter). Element DOF ordering is
+Counterpart of ``eigd_tpu/fem/quad.py`` (the plane-stress tables, the
+geometric-stiffness tables of buckling and the scalar tables of the
+Helmholtz filter and the thermal model). Element DOF ordering is
 [ux0, uy0, ux1, uy1, ...]; the plane-stress quadrature-point index is
 2*i + j over GAUSS[i], GAUSS[j], the scalar one 2*j + i.
 """
@@ -85,6 +86,39 @@ def plane_stress_tables(X, conn):
         He_list.append(He)
         dJ_list.append(detJ)
     return torch.stack(Be_list), torch.stack(He_list), torch.stack(dJ_list)
+
+
+def stress_stiffness_tables(X, conn):
+    """Quadrature tables for the geometric (stress) stiffness of buckling.
+
+    Returns
+    -------
+    Be : (nq, nelems, 3, 8) strain-displacement matrices
+    Te : (nq, nelems, 3, 4, 4) with Te[:, :, 0] = Nx Nx^T, [1] = Ny Ny^T,
+         [2] = Nx Ny^T + Ny Nx^T
+    detJ : (nq, nelems)
+    """
+    xe = X[conn, 0]
+    ye = X[conn, 1]
+    nelems = conn.shape[0]
+
+    Be_list, Te_list, dJ_list = [], [], []
+    for xi, eta in quad_points():
+        _, Nx, Ny, detJ = _grads(xe, ye, xi, eta)
+        Be = X.new_zeros((nelems, 3, 8))
+        Be[:, 0, 0::2] = Nx
+        Be[:, 1, 1::2] = Ny
+        Be[:, 2, 0::2] = Ny
+        Be[:, 2, 1::2] = Nx
+        Te = torch.stack([
+            torch.einsum("ni,nj->nij", Nx, Nx),
+            torch.einsum("ni,nj->nij", Ny, Ny),
+            torch.einsum("ni,nj->nij", Nx, Ny)
+            + torch.einsum("ni,nj->nij", Ny, Nx)], dim=1)
+        Be_list.append(Be)
+        Te_list.append(Te)
+        dJ_list.append(detJ)
+    return torch.stack(Be_list), torch.stack(Te_list), torch.stack(dJ_list)
 
 
 def thermal_tables(X, conn):

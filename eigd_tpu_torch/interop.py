@@ -11,10 +11,13 @@ random power-iteration start.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from .fem.filter import NodeFilter
+from .models.buckling import BucklingTopologyAnalysis
 from .models.natural_frequency import TopologyAnalysis
 from .models.thermal import ThermalTopologyAnalysis
 from .ops.factor import CholeskyFactor
@@ -95,6 +98,33 @@ def thermal_from_numpy(x, X, conn, element_sets, filter_state, grid_shape,
                                    grid_shape=grid_shape, device=device,
                                    **config)
     topo.x = _t(x, device, torch.float64)
+    return topo
+
+
+def buckling_from_numpy(x, X, conn, free_dofs, forces, filter_state, r0,
+                        v0=None, device="cuda", dvmap=None,
+                        num_design_vars=None, projection=False, beta=10.0,
+                        eta=0.5, **config):
+    """A ``BucklingTopologyAnalysis`` on the given state.
+
+    x : design vector; X, conn : the mesh; free_dofs, forces : the
+    boundary and the load; filter_state : the spatial filter's ELL pair
+    (idx, wts), with r0, dvmap, num_design_vars and the projection fields;
+    v0 : the Lanczos start vector (JAX's, as numpy: free-DOF length on the
+    dense path, full length and zero on the fixed DOFs on the masked one),
+    or None for the port's own; ``config`` : the analysis' keyword fields
+    (factor_kind, grid_shape, N, m, sigma, adjoint_method, ...).
+    """
+    fltr = filter_from_numpy(conn, X, r0, "spatial", filter_state,
+                             dvmap=dvmap, num_design_vars=num_design_vars,
+                             device=device, projection=projection, beta=beta,
+                             eta=eta)
+    topo = BucklingTopologyAnalysis(fltr, conn, X, free_dofs, forces,
+                                    device=device, **config)
+    topo.x = _t(x, device, torch.float64)
+    if v0 is not None:
+        v = _t(v0, device, torch.float64)
+        topo.problem = dataclasses.replace(topo.problem, v0=lambda th: v)
     return topo
 
 

@@ -7,8 +7,11 @@ mixed-precision ladder, PCPG and projected GMRES. All N adjoint systems
 advance together as (n, N) blocks. JAX's ``while_loop``s become Python
 loops whose exits are host decisions (``sync.host_bool``); JAX's ``vmap``
 over the N shifted systems (SIBK's least squares, PGMRES's Arnoldi
-recurrences) becomes a batch dimension. ``dl`` is not ported (ROADMAP
-queue 1, item 12).
+recurrences) becomes a batch dimension. Every solver takes the normal
+mode, A phi = lam B phi, and the buckling mode, the pencil
+K phi + lam G phi = 0 with (A, B) = (G, K) and K-orthonormal Phi, whose
+adjoint systems are (B + lam_i A) psi_i = -proj(Phib_i). ``dl`` is not
+ported (ROADMAP queue 1, item 12).
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import types
 import torch
 
 from .collective import pdot, qr_tall
-from .lanczos import LanczosResult, _normal_mode_only
+from .lanczos import LanczosResult
 from .operators import as_operator
 from .sync import host_bool
 
@@ -54,11 +57,15 @@ def generate_adjoint_correction(lam, Phi, psi, G=None, Phib=None,
 
     Distinct pairs fold directly into psi; numerically repeated pairs get
     (Xi, Eta) coefficients in an EigCorrection. Requires Phi^T B psi = 0.
+    In buckling mode the couplings G are scaled by diag(lam).
     Returns (psi_corrected, EigCorrection).
     """
-    _normal_mode_only(mode)
     N = lam.shape[0]
     G0 = -pdot(Phi.T, Phib) if G is None else G
+    if mode == "buckling":
+        G0 = lam[:, None] * G0
+    elif mode != "normal":
+        raise ValueError(f"Unknown mode {mode!r}")
 
     diff = lam[:, None] - lam[None, :]  # diff[j, i] = lam[j] - lam[i]
     eye = torch.eye(N, dtype=torch.bool, device=lam.device)
@@ -88,29 +95,41 @@ def generate_adjoint_correction(lam, Phi, psi, G=None, Phib=None,
 def total_derivative_weights(lam, Phi, lamb, Phib, psi, adj_corr_data=None,
                              mode="normal"):
     """The (n, N) weight blocks W_A, W_B of the total derivative
-    df/dx = dAdx(W_A, Phi) - dBdx(W_B, Phi) (normal mode):
+    df/dx = dAdx(W_A, Phi) -/+ dBdx(W_B, Phi) (minus in normal mode, plus
+    in buckling mode):
 
-        W_A = Phi diag(lamb) + psi + Phi Xi
-        W_B = Phi diag(beta + lam*lamb) + psi diag(lam) + Phi Eta
+        normal:   W_A = Phi diag(lamb) + psi + Phi Xi
+                  W_B = Phi diag(beta + lam*lamb) + psi diag(lam) + Phi Eta
+        buckling: W_A = Phi diag(lam^2 lamb) + psi diag(lam) + Phi Eta
+                  W_B = Phi diag(lam*lamb - beta) + psi + Phi Xi
 
-    with beta_i = 0.5 * phi_i . Phib_i.
+    with beta_i = 0.5 * phi_i . Phib_i. In buckling mode lamb enters
+    scaled by lam: with K phi + lam G phi = 0 and phi^T K phi = 1,
+    d(lam) = lam phi^T dK phi + lam^2 phi^T dG phi.
     """
-    _normal_mode_only(mode)
     N = lam.shape[0]
     if adj_corr_data is None:
         adj_corr_data = no_correction(N, Phi.dtype, Phi.device)
     Xi, Eta = adj_corr_data.Xi, adj_corr_data.Eta
     beta = 0.5 * torch.sum(Phi * Phib, dim=0)
-    W_A = Phi * lamb[None, :] + psi + Phi @ Xi
-    W_B = (Phi * (beta + lam * lamb)[None, :] + psi * lam[None, :]
-           + Phi @ Eta)
+    if mode == "normal":
+        W_A = Phi * lamb[None, :] + psi + Phi @ Xi
+        W_B = (Phi * (beta + lam * lamb)[None, :] + psi * lam[None, :]
+               + Phi @ Eta)
+    elif mode == "buckling":
+        W_A = ((Phi * (lam * lamb)[None, :] + psi) * lam[None, :]
+               + Phi @ Eta)
+        W_B = Phi * (lam * lamb - beta)[None, :] + psi + Phi @ Xi
+    else:
+        raise ValueError(f"Unknown mode {mode!r}")
     return W_A, W_B
 
 
 def add_eig_total_derivative(lam, Phi, lamb, Phib, psi, dAdx, dBdx, dfdx,
                              adj_corr_data=None, mode="normal",
                              deriv_type="tensor"):
-    """dfdx + dAdx(W_A, Phi) - dBdx(W_B, Phi) with the weight blocks of
+    """dfdx + dAdx(W_A, Phi) -/+ dBdx(W_B, Phi) (minus in normal mode, plus
+    in buckling mode) with the weight blocks of
     ``total_derivative_weights``; ``dAdx(W, V)`` contracts
     sum_i w_i^T (dA/dx) v_i. Either callback may be None."""
     del deriv_type  # the batched contraction always
@@ -120,7 +139,8 @@ def add_eig_total_derivative(lam, Phi, lamb, Phib, psi, dAdx, dBdx, dfdx,
     if dAdx is not None:
         dfdx = dfdx + dAdx(W_A, Phi)
     if dBdx is not None:
-        dfdx = dfdx - dBdx(W_B, Phi)
+        dB = dBdx(W_B, Phi)
+        dfdx = dfdx - dB if mode == "normal" else dfdx + dB
     return dfdx
 
 
@@ -131,15 +151,15 @@ def add_eig_total_derivative(lam, Phi, lamb, Phib, psi, dAdx, dBdx, dfdx,
 
 def eval_adjoint_residual_norm(A, B, lam, Phi, Phib, psi, mode="normal",
                                b_ortho=False):
-    """res[i] = || A psi_i - lam_i B psi_i - b_i ||,
+    """res[i] = || A psi_i - lam_i B psi_i - b_i || (buckling mode:
+    || B psi_i + lam_i A psi_i - b_i ||),
     b_i = -(Phib_i - B phi_i (phi_i . Phib_i)), and the orthogonality
     |phi_i^T B psi_i| (or max_j |(B phi_j)^T psi_i| if b_ortho)."""
-    _normal_mode_only(mode)
     A, B = as_operator(A), as_operator(B)
     BPhi = B.mv(Phi)
     proj_coef = torch.sum(Phi * Phib, dim=0)
     bmat = -(Phib - BPhi * proj_coef[None, :])
-    r = A.mv(psi) - B.mv(psi) * lam[None, :] - bmat
+    r = _shifted_mv(A, B, lam, psi, mode) - bmat
     if b_ortho:
         r = r - BPhi @ (Phi.T @ r)
         ortho = torch.max(torch.abs(BPhi.T @ psi), dim=0).values
@@ -159,9 +179,9 @@ def laa(Phib, B, factor, res: LanczosResult, b_ortho=False, mode="normal",
     """Galerkin solution of the adjoint equations in the Lanczos subspace:
 
     D[i, j] = (Ys_i . Yb_j) / (theta_j - theta_i) (masked), then
-    psi = -factor(B V (Ys (D * scale))),  scale = 1/(lam - sigma).
+    psi = -factor(B V (Ys (D * scale))),  scale = 1/(lam - sigma), or
+    sigma/(lam - sigma) in buckling mode.
     """
-    _normal_mode_only(mode)
     B = as_operator(B)
     m = res.m
     N = Phib.shape[1]
@@ -181,7 +201,12 @@ def laa(Phib, B, factor, res: LanczosResult, b_ortho=False, mode="normal",
     # directions never measured carry theta = 0: zero their rows
     good = torch.abs(theta_s) > 1e-12 * torch.max(torch.abs(theta_s))
     D = D * good[:, None]
-    scale = 1.0 / (lam - sigma)
+    if mode == "normal":
+        scale = 1.0 / (lam - sigma)
+    elif mode == "buckling":
+        scale = sigma / (lam - sigma)
+    else:
+        raise ValueError(f"Unknown mode {mode!r}")
     t = Ys @ (D * scale[None, :])
     rhs = B.mv(V.T @ t)
     mv = getattr(factor, "approx_mv", None) if approx else None
@@ -217,15 +242,27 @@ def _solve_shifted_lstsq(alpha, H0, r):
 # ---------------------------------------------------------------------------
 
 
-def _projected_adjoint_residual(Phib, A, B, lam, Phi, BPhi, psi):
-    """R = proj(-Phib - (A - lam B) psi): the sibk outer-round residual."""
-    Rm = -Phib - (A.mv(psi) - B.mv(psi) * lam[None, :])
+def _shifted_mv(A, B, lam, X, mode):
+    """The N shifted operators on the columns of X: (A - lam_i B) x_i, or
+    (B + lam_i A) x_i in buckling mode."""
+    if mode == "normal":
+        return A.mv(X) - B.mv(X) * lam[None, :]
+    if mode == "buckling":
+        return B.mv(X) + A.mv(X) * lam[None, :]
+    raise ValueError(f"Unknown mode {mode!r}")
+
+
+def _projected_adjoint_residual(Phib, A, B, lam, Phi, BPhi, psi, mode):
+    """R = proj(-Phib - (A - lam B) psi) (buckling: (B + lam A)): the sibk
+    outer-round residual."""
+    Rm = -Phib - _shifted_mv(A, B, lam, psi, mode)
     return Rm - BPhi @ (Phi.T @ Rm)
 
 
-def sibk_true_resnorm(Phib, A, B, lam, Phi, psi):
+def sibk_true_resnorm(Phib, A, B, lam, Phi, psi, mode="normal"):
     """Absolute projected-residual norms of the N adjoint systems."""
-    R = _projected_adjoint_residual(Phib, A, B, lam, Phi, B.mv(Phi), psi)
+    R = _projected_adjoint_residual(Phib, A, B, lam, Phi, B.mv(Phi), psi,
+                                    mode)
     return torch.sqrt(torch.sum(R * R, dim=0))
 
 
@@ -235,8 +272,10 @@ def _sibk_setup(Phib, A, B, lam, Phi, mode="normal", sigma=None,
     """The sibk round machinery: ``one_round(psi, eps_f)`` grows one
     block-Krylov ladder of up to T = ceil(maxiter / N) block steps from the
     projected residual of psi and updates psi by batched shifted
-    least-squares; ``true_resnorm`` measures the restart residual."""
-    _normal_mode_only(mode)
+    least-squares; ``true_resnorm`` measures the restart residual. The
+    ladder grows on factor then B (normal mode: (A - lam B) z =
+    w - (lam - sigma) B z) or factor then A (buckling mode:
+    (B + lam A) z = w + (lam - sigma) A z)."""
     A, B = as_operator(A), as_operator(B)
     n, N = Phib.shape
     dtype = Phib.dtype
@@ -247,10 +286,18 @@ def _sibk_setup(Phib, A, B, lam, Phi, mode="normal", sigma=None,
     rnorm0 = torch.sqrt(torch.max(torch.sum(Phib * Phib, dim=0)))
     tol = torch.clamp(rtol * rnorm0, min=atol)
 
-    alphas = lam - sigma
+    if mode == "normal":
+        alphas = lam - sigma
+        ladder_op = B
+    elif mode == "buckling":
+        alphas = -(lam - sigma)
+        ladder_op = A
+    else:
+        raise ValueError(f"Unknown mode {mode!r}")
 
     def op_residual(psi_):
-        return _projected_adjoint_residual(Phib, A, B, lam, Phi, BPhi, psi_)
+        return _projected_adjoint_residual(Phib, A, B, lam, Phi, BPhi, psi_,
+                                           mode)
 
     def true_resnorm(psi_):
         R = op_residual(psi_)
@@ -327,7 +374,7 @@ def _sibk_setup(Phib, A, B, lam, Phi, mode="normal", sigma=None,
         def step(t):
             lo = t * N
             Zblk = lcast(factor_lmv(W[lo:lo + N].T))  # (n, N) blocked apply
-            w = proj_l(lcast(B.mv(Zblk)))
+            w = proj_l(lcast(ladder_op.mv(Zblk)))
             mask = (col < lo + N).to(ldt)
             h1 = (W @ w) * mask[:, None]
             w = w - W.T @ h1
@@ -438,7 +485,6 @@ def pcpg(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
     Returns (psi, EigCorrection, info) with info = dict(res = final
     relative residuals, niter, hist = per-iteration history).
     """
-    _normal_mode_only(mode)
     A, B = as_operator(A), as_operator(B)
     N = Phib.shape[1]
     dtype = Phib.dtype
@@ -456,6 +502,9 @@ def pcpg(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
             return precond(Zp.to(torch.float32)).to(dtype)
 
     if deflate is not None:
+        if mode != "normal":
+            raise NotImplementedError(
+                "pcpg deflation handling is normal-mode only")
         U, BU = deflate
         psi = psi + U.T @ ((U @ Phib) / lam[None, :])
 
@@ -470,7 +519,7 @@ def pcpg(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
 
         defl_z = defl_r
 
-    R = -Phib - (A.mv(psi) - B.mv(psi) * lam[None, :])
+    R = -Phib - _shifted_mv(A, B, lam, psi, mode)
     G = Phi.T @ R
     R = defl_r(R - BPhi @ G)
 
@@ -496,12 +545,19 @@ def pcpg(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
         P = Z + beta[None, :] * P0
         tA = A.mv(P)
         tB = B.mv(P)
-        denom = torch.sum(tA * P, dim=0) - lam * torch.sum(tB * P, dim=0)
+        if mode == "normal":
+            denom = (torch.sum(tA * P, dim=0)
+                     - lam * torch.sum(tB * P, dim=0))
+            tS = tA - tB * lam[None, :]
+        else:
+            denom = (torch.sum(tB * P, dim=0)
+                     + lam * torch.sum(tA * P, dim=0))
+            tS = tB + tA * lam[None, :]
         step = torch.where(active & (denom > 0.0),
                            zTr / torch.where(denom == 0.0, 1.0, denom), 0.0)
         psi = psi + step[None, :] * P
         Rprev = R
-        R = R - step[None, :] * (tA - tB * lam[None, :])
+        R = R - step[None, :] * tS
         P0, zTr_prev = P, zTr
         k += 1
 
@@ -536,7 +592,6 @@ def pgmres(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
     relative least-squares residuals, niter = steps summed over modes,
     hist = per-check history).
     """
-    _normal_mode_only(mode)
     A, B = as_operator(A), as_operator(B)
     n, N = Phib.shape
     dtype = Phib.dtype
@@ -548,7 +603,7 @@ def pgmres(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
     rnorm0 = torch.sqrt(torch.max(torch.sum(Phib * Phib, dim=0)))
     tol = torch.clamp(rtol * rnorm0, min=atol)
 
-    R0 = -Phib - (A.mv(psi) - B.mv(psi) * lam[None, :])
+    R0 = -Phib - _shifted_mv(A, B, lam, psi, mode)
     G = Phi.T @ R0
     R0 = R0 - BPhi @ G
 
@@ -581,7 +636,7 @@ def pgmres(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
         live = (~done).to(dtype)
         wj = W[:, j].T  # (n, N)
         z = factor.mv(wj - BPhi @ (Phi.T @ wj))
-        w = A.mv(z) - B.mv(z) * lam[None, :]
+        w = _shifted_mv(A, B, lam, z, mode)
         w = (w - BPhi @ (Phi.T @ w)).T  # (N, n)
         mask = (col <= j).to(dtype)
         h1 = torch.einsum("ikn,in->ik", W, w) * mask

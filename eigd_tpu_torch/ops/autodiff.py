@@ -4,7 +4,8 @@ Counterpart of ``eigd_tpu/ops/autodiff.py:36-349``:
 
     lam, Phi = eigh_gen(theta, problem, cfg)
 
-composes with ``torch.autograd``. The forward pass assembles the operators,
+composes with ``torch.autograd``; theta is a tensor or a tuple of tensors
+(buckling's (rhoE, u)). The forward pass assembles the operators,
 attaches the kernels' plane stencils at the solver boundary, builds the
 shift-invert factor (``problem.factor``, or the dense one of
 ``make_shift_factor``) and runs the Lanczos eigensolve (block, or single
@@ -12,12 +13,15 @@ vector for ``block <= 1``), all without autograd. The backward pass runs
 the adjoint solve (an LAA guess, then SIBK, PCPG or PGMRES) with the
 repeated-eigenvalue correction and chains the matrix cotangents into
 theta by ``torch.autograd.grad`` of the bilinear forms
-sum_i w_i^T A(theta) phi_i over a fresh, plain assembly. So no kernel is
-ever inside the autograd graph, and the kernels need no backward.
+sum_i w_i^T A(theta) phi_i -/+ sum_i v_i^T B(theta) phi_i (minus in the
+normal mode, plus in the buckling mode) over a fresh, plain assembly. So
+no kernel is ever inside the autograd graph, and the kernels need no
+backward.
 
 ``eigh_gen_dense`` takes explicit (A, B) and returns the matrix
 cotangents. ``eigh_gen_oracle`` and ``eigh_gen_directional_oracle`` are
-the plain dense references of the tests.
+the plain dense references of the tests. ``solve_spd`` is the static
+solve u = K(theta)^{-1} f with a hand-written reverse and forward rule.
 
 Forward mode (``eigh_gen_tangent``, ``staged_jvp``) is the counterpart of
 ``eigd_tpu/ops/autodiff.py:391-540``: the tangent solves the adjoint's
@@ -27,6 +31,7 @@ projected systems with the operator tangents as right-hand sides.
 from __future__ import annotations
 
 import dataclasses
+import types
 from contextlib import nullcontext
 from typing import Callable
 
@@ -35,8 +40,7 @@ from torch.profiler import record_function
 
 from . import adjoint as adj
 from .factor import make_shift_factor
-from .lanczos import (_normal_mode_only, b_orthonormalize_rows,
-                      block_lanczos_solve, lanczos_solve)
+from .lanczos import b_orthonormalize_rows, block_lanczos_solve, lanczos_solve
 from .operators import DenseOperator
 
 
@@ -91,16 +95,21 @@ class EigProblem:
     v0: Callable = None
 
 
+def kernels_on(kernel_mv, device):
+    """Whether solver-side stencils on ``device`` run on the kernels under
+    ``EighGenConfig.kernel_mv``."""
+    if kernel_mv == "auto":
+        return torch.device(device).type == "cuda"
+    if kernel_mv in ("on", "off"):
+        return kernel_mv == "on"
+    raise ValueError(f"Unknown kernel_mv {kernel_mv!r}")
+
+
 def _kernel_ops(A, B, cfg):
     """Solver-boundary operator enhancement: attach the kernels' plane
     stencils (``GridStencilOperator.with_kernels``)."""
-    if cfg.kernel_mv == "auto":
-        on = getattr(A, "device", torch.device("cpu")).type == "cuda"
-    elif cfg.kernel_mv in ("on", "off"):
-        on = cfg.kernel_mv == "on"
-    else:
-        raise ValueError(f"Unknown kernel_mv {cfg.kernel_mv!r}")
-    if not on:
+    if not kernels_on(cfg.kernel_mv,
+                      getattr(A, "device", torch.device("cpu"))):
         return A, B
     if hasattr(A, "with_kernels") and A.Wp64 is None:
         A = A.with_kernels()
@@ -187,7 +196,7 @@ def solve_eig_adjoint(A, B, res, factor, lam_bar, Phi_bar, cfg,
     ``deflate``: the (U, BU) rows deflated out of the forward solve; pcpg
     resolves those components explicitly. Returns (W_A, W_B, Phi) such
     that the matrix cotangents are A_bar = W_A Phi^T and
-    B_bar = -W_B Phi^T (normal mode).
+    B_bar = -W_B Phi^T (normal mode), +W_B Phi^T (buckling mode).
     """
     if cfg.adjoint_method == "dl":
         raise NotImplementedError(
@@ -249,50 +258,126 @@ class EighGenDense(torch.autograd.Function):
         lam_bar, Phi_bar = _zero_seeds(res, lam_bar, Phi_bar)
         W_A, W_B, Phi = solve_eig_adjoint(A, B, res, factor, lam_bar,
                                           Phi_bar, ctx.cfg)
-        return W_A @ Phi.T, -(W_B @ Phi.T), None
+        B_bar = W_B @ Phi.T
+        return (W_A @ Phi.T, -B_bar if ctx.cfg.mode == "normal" else B_bar,
+                None)
 
 
 def eigh_gen_dense(A, B, cfg: EighGenConfig):
-    """N smallest eigenpairs of A phi = lam B phi for dense (n, n) A, B,
+    """N smallest eigenpairs of A phi = lam B phi for dense (n, n) A, B
+    (buckling mode: the N lowest load factors of B phi + lam A phi = 0),
     with the adjoint backward pass: A_bar = W_A Phi^T and
-    B_bar = -W_B Phi^T."""
+    B_bar = -/+ W_B Phi^T."""
     return EighGenDense.apply(A, B, cfg)
 
 
 class EighGen(torch.autograd.Function):
-    """N smallest eigenpairs of A(theta) phi = lam B(theta) phi."""
+    """N smallest eigenpairs of A(theta) phi = lam B(theta) phi. theta
+    arrives as its leaves: one tensor, or the tensors of a tuple
+    (``packed``), each of which gets its gradient."""
 
     @staticmethod
-    def forward(ctx, theta, problem, cfg):
+    def forward(ctx, problem, cfg, packed, *leaves):
+        theta = leaves if packed else leaves[0]
         A, B = problem.assemble(theta)
         A, B, res, factor = _forward_ops(theta, problem, A, B, cfg)
-        _keep_solve(ctx, A, B, res, factor, theta)
-        ctx.problem, ctx.cfg = problem, cfg
+        _keep_solve(ctx, A, B, res, factor, *leaves)
+        ctx.problem, ctx.cfg, ctx.packed = problem, cfg, packed
         return res.lam, res.Phi
 
     @staticmethod
     def backward(ctx, lam_bar, Phi_bar):
-        (theta,), (A, B, res, factor) = _kept_solve(ctx)
+        leaves, (A, B, res, factor) = _kept_solve(ctx)
         lam_bar, Phi_bar = _zero_seeds(res, lam_bar, Phi_bar)
         deflate = None
         if (ctx.problem.nullspace is not None
                 and ctx.cfg.adjoint_method == "pcpg"):
+            theta = tuple(leaves) if ctx.packed else leaves[0]
             deflate = b_orthonormalize_rows(ctx.problem.nullspace(theta),
                                             B.mv)
         W_A, W_B, Phi = solve_eig_adjoint(A, B, res, factor, lam_bar,
                                           Phi_bar, ctx.cfg, deflate=deflate)
         with torch.enable_grad():
-            th = theta.detach().requires_grad_(True)
-            A2, B2 = ctx.problem.assemble(th)
-            f = torch.sum(W_A * A2.mv(Phi)) - torch.sum(W_B * B2.mv(Phi))
-            (theta_bar,) = torch.autograd.grad(f, th)
-        return theta_bar, None, None
+            ths = [t.detach().requires_grad_(True) for t in leaves]
+            A2, B2 = ctx.problem.assemble(tuple(ths) if ctx.packed
+                                          else ths[0])
+            fA = torch.sum(W_A * A2.mv(Phi))
+            fB = torch.sum(W_B * B2.mv(Phi))
+            f = fA - fB if ctx.cfg.mode == "normal" else fA + fB
+            bars = torch.autograd.grad(f, ths, allow_unused=True)
+        return (None, None, None, *bars)
 
 
 def eigh_gen(theta, problem: EigProblem, cfg: EighGenConfig):
     """N smallest eigenpairs of A(theta) phi = lam B(theta) phi, with the
-    adjoint backward pass."""
-    return EighGen.apply(theta, problem, cfg)
+    adjoint backward pass; theta is a tensor or a tuple of tensors."""
+    if isinstance(theta, (tuple, list)):
+        return EighGen.apply(problem, cfg, True, *theta)
+    return EighGen.apply(problem, cfg, False, theta)
+
+
+class SolveSPD(torch.autograd.Function):
+    """u = K(theta)^{-1} f through a factor that autograd does not see
+    (``solve_spd``). The factor is built in ``forward`` and handed to
+    ``setup_context`` through ``box``, an object that torch.func's pytree
+    handling passes through as it is (a list would be copied)."""
+
+    @staticmethod
+    def forward(theta, f, build_op, build_factor, box):
+        fac = build_factor(theta)
+        box.fac = fac
+        return fac.mv(f)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        theta, _, build_op, _, box = inputs
+        # torch.func's transforms may set up more than one ctx per call
+        ctx.fac, ctx.build_op = box.fac, build_op
+        ctx.save_for_backward(theta, output)
+        ctx.save_for_forward(theta, output)
+
+    @staticmethod
+    def backward(ctx, u_bar):
+        theta, u = ctx.saved_tensors
+        w = ctx.fac.mv(u_bar)
+        with torch.enable_grad():
+            th = theta.detach().requires_grad_(True)
+            bilin = -torch.sum(w * ctx.build_op(th).mv(u))
+            (theta_bar,) = torch.autograd.grad(bilin, th)
+        return theta_bar, w, None, None, None
+
+    @staticmethod
+    def jvp(ctx, dtheta, df, *_):
+        theta, u = ctx.saved_tensors
+        rhs = torch.zeros_like(u) if df is None else df
+        if dtheta is not None:
+            rhs = rhs - _op_tangent(ctx.build_op, theta, dtheta, u)
+        return ctx.fac.mv(rhs)
+
+
+def _op_tangent(build_op, theta, dtheta, u):
+    """dK u: the tangent of build_op(theta).mv(u) along dtheta, by forward
+    mode through the plain assembly."""
+    _, dKu = torch.func.jvp(lambda th: build_op(th).mv(u),
+                            (theta.detach(),), (dtheta.detach(),))
+    return dKu
+
+
+def solve_spd(theta, f, build_op, build_factor):
+    """u = K(theta)^{-1} f with the self-adjoint rules of
+    ``eigd_tpu/ops/autodiff.py:1041-1100`` (``solve_spd`` and
+    ``solve_spd_fwdmode`` in one function):
+
+        reverse: w = K^{-1} u_bar;  theta_bar = -grad_theta(w^T K(theta) u);
+                 f_bar = w
+        forward: du = K^{-1} (df - dK u)
+
+    build_op(theta) -> operator, differentiable in theta (a tensor);
+    build_factor(theta) -> factor with ``mv``, not differentiated. So
+    ``torch.func.jvp`` (``staged_jvp``) and ``torch.autograd`` both pass
+    through the solve."""
+    return SolveSPD.apply(theta, f, build_op, build_factor,
+                          types.SimpleNamespace(fac=None))
 
 
 # ---------------------------------------------------------------------------
@@ -301,7 +386,8 @@ def eigh_gen(theta, problem: EigProblem, cfg: EighGenConfig):
 
 
 def eigh_gen_tangent(theta, dtheta, problem, cfg, fwd=None):
-    """Forward-mode tangent of ``eigh_gen`` along dtheta (normal mode).
+    """Forward-mode tangent of ``eigh_gen`` along dtheta (a tensor, or a
+    tuple like theta).
 
     Counterpart of ``eigd_tpu/ops/autodiff.py:391-485``. With B-orthonormal
     eigenvectors and W_i = (dA - lam_i dB) phi_i:
@@ -314,16 +400,18 @@ def eigh_gen_tangent(theta, dtheta, problem, cfg, fwd=None):
     configured adjoint method with W as the right-hand side; the distinct
     solved-pair couplings (phi_j^T W_i)/(lam_i - lam_j) fold into v_i there,
     and inside numerically repeated clusters (and on the diagonal) the
-    coupling is -1/2 phi_j^T dB phi_i. ``fwd``, if given, is the forward
-    solve ``(A, B, res, factor)`` to reuse (``staged_jvp``). Nothing here is
-    recorded by autograd.
+    coupling is -1/2 phi_j^T dB phi_i. In buckling mode ((A, B) = (G, K),
+    K-orthonormal Phi) W_i = (dB + lam_i dA) phi_i, dlam_i =
+    lam_i phi_i^T W_i, and v_i solves (B + lam_i A) v_i = -proj(W_i).
+    ``fwd``, if given, is the forward solve ``(A, B, res, factor)`` to
+    reuse (``staged_jvp``). Nothing here is recorded by autograd.
 
     Returns (lam, Phi, dlam, dPhi).
     """
-    if cfg.mode != "normal":
+    if cfg.mode not in ("normal", "buckling"):
         raise NotImplementedError(
-            f"mode={cfg.mode!r}: only the normal-mode tangent is ported "
-            "(ROADMAP queue 1, item 14 lists buckling)")
+            f"mode={cfg.mode!r} has no tangent rule (normal and buckling "
+            "have)")
     with torch.no_grad():
         if fwd is None:
             A, B = problem.assemble(theta)
@@ -341,13 +429,22 @@ def eigh_gen_tangent(theta, dtheta, problem, cfg, fwd=None):
         A2, B2 = problem.assemble(th)
         return A2.mv(Phi), B2.mv(Phi)
 
+    def detached(t):
+        if isinstance(t, (tuple, list)):
+            return tuple(v.detach() for v in t)
+        return t.detach()
+
     with record_function("eigh_gen_tangent.operators"):
-        _, (dAP, dBP) = torch.func.jvp(apply_both, (theta.detach(),),
-                                       (dtheta.detach(),))
+        _, (dAP, dBP) = torch.func.jvp(apply_both, (detached(theta),),
+                                       (detached(dtheta),))
 
     with torch.no_grad():
-        W = dAP - dBP * lam[None, :]  # W[:, i] = (dA - lam_i dB) phi_i
-        dlam = torch.sum(Phi * W, dim=0)
+        if cfg.mode == "buckling":
+            W = dBP + dAP * lam[None, :]  # W[:, i] = (dB + lam_i dA) phi_i
+            dlam = lam * torch.sum(Phi * W, dim=0)
+        else:
+            W = dAP - dBP * lam[None, :]  # W[:, i] = (dA - lam_i dB) phi_i
+            dlam = torch.sum(Phi * W, dim=0)
         # as in JAX, a method the tangent has no use for (dl) solves by
         # sibk; pcpg runs without the deflation handling, as there
         method = cfg.adjoint_method
@@ -408,11 +505,21 @@ def _cholesky_pencil(A, B):
 def eigh_gen_oracle(A, B, N, mode="normal"):
     """The N smallest eigenpairs of A phi = lam B phi by the Cholesky
     transform and ``torch.linalg.eigh``, differentiable by torch's own
-    rules (simple eigenvalues only): the gradient oracle of the tests."""
-    _normal_mode_only(mode)
+    rules (simple eigenvalues only): the gradient oracle of the tests.
+
+    mode="buckling": (A, B) = (G, K); returns the eigenvalues mu of
+    G phi = mu K phi (the load factors are -1/mu) and the K-orthonormal
+    vectors, ordered by -1/mu as JAX's oracle returns them."""
     L, w, y = _cholesky_pencil(A, B)
-    phi = torch.linalg.solve_triangular(L.T, y[:, :N], upper=True)
-    return w[:N], phi
+    if mode == "buckling":
+        order = torch.argsort(-1.0 / w, stable=True)[:N]
+        w, y = w[order], y[:, order]
+    elif mode == "normal":
+        w, y = w[:N], y[:, :N]
+    else:
+        raise ValueError(f"Unknown mode {mode!r}")
+    phi = torch.linalg.solve_triangular(L.T, y, upper=True)
+    return w, phi
 
 
 def eigh_gen_directional_oracle(A, B, dA, dB, N, eig_atol=1e-5,
@@ -422,17 +529,32 @@ def eigh_gen_directional_oracle(A, B, dA, dB, N, eig_atol=1e-5,
     numerically repeated pair (|lam_j - lam_i| <= eig_atol) keeps only its
     symmetric part -1/2 phi_j^T dB phi_i, as on the diagonal.
 
+    mode="buckling": (A, B) = (G, K), lam = -1/mu the load factors of
+    G phi = mu K phi in ascending mu; W_i = (dB + lam_i dA) phi_i,
+    dlam_i = lam_i phi_i^T W_i and the distinct couplings
+    -lam_j phi_j^T W_i / (lam_j - lam_i).
+
     Returns (lam, Phi, dlam, dPhi) for the N selected modes.
     """
-    _normal_mode_only(mode)
     with torch.no_grad():
-        L, lam, y = _cholesky_pencil(A, B)
+        L, mu, y = _cholesky_pencil(A, B)
         Phi = torch.linalg.solve_triangular(L.T, y, upper=True)
         P = Phi[:, :N]
-        W = dA @ P - (dB @ P) * lam[None, :N]  # W_i = (dA - lam_i dB) phi_i
-        dlam = torch.sum(P * W, dim=0)
-        diff = lam[None, :N] - lam[:, None]  # [j, i] = lam_i - lam_j
+        if mode == "buckling":
+            lam = -1.0 / mu
+            W = dB @ P + (dA @ P) * lam[None, :N]
+            dlam = lam[:N] * torch.sum(P * W, dim=0)
+            diff = lam[:, None] - lam[None, :N]  # [j, i] = lam_j - lam_i
+            coef = -lam[:, None] * (Phi.T @ W)
+        elif mode == "normal":
+            lam = mu
+            W = dA @ P - (dB @ P) * lam[None, :N]  # (dA - lam_i dB) phi_i
+            dlam = torch.sum(P * W, dim=0)
+            diff = lam[None, :N] - lam[:, None]  # [j, i] = lam_i - lam_j
+            coef = Phi.T @ W
+        else:
+            raise ValueError(f"Unknown mode {mode!r}")
         far = torch.abs(diff) > eig_atol
-        C = torch.where(far, (Phi.T @ W) / torch.where(far, diff, 1.0),
+        C = torch.where(far, coef / torch.where(far, diff, 1.0),
                         -0.5 * (Phi.T @ (dB @ P)))
         return lam[:N], P, dlam, Phi @ C

@@ -1,9 +1,11 @@
-"""Shift-invert factorizations: ``factor.mv(x) = (A - sigma*B)^{-1} x``.
+"""Shift-invert factorizations: ``factor.mv(x) = (A - sigma*B)^{-1} x``
+(normal mode) or ``(B + sigma*A)^{-1} x`` (buckling mode).
 
 Counterpart of ``eigd_tpu/ops/factor.py``:
 
 * ``CholeskyFactor``: dense Cholesky of the shifted matrix, valid when it
-  is SPD (sigma below the spectrum in normal mode); each apply is two
+  is SPD (sigma below the spectrum in normal mode, below the first load
+  factor in buckling mode); each apply is two
   triangular solves plus ``refine`` steps of iterative refinement.
 * ``EighFactor``: the inverse through a full symmetric eigendecomposition,
   robust to indefinite shifted matrices.
@@ -107,7 +109,7 @@ class CGFactor:
     """
 
     def __init__(self, op, diag, maxiter=200, tol=1e-12):
-        self.op = op  # the shifted operator (A - sigma B)
+        self.op = op  # the shifted operator
         self.diag = diag  # its diagonal, for the Jacobi preconditioner
         self.maxiter = maxiter
         self.tol = tol
@@ -147,16 +149,20 @@ class CGFactor:
 
 
 def make_shift_factor(A, B, sigma, mode="normal", kind="cholesky", **kwargs):
-    """The shift-invert factor (A - sigma B)^{-1} of the normal mode, from
-    the dense forms of A and B (tensors or operators with ``to_dense``).
+    """The shift-invert factor from the dense forms of A and B (tensors or
+    operators with ``to_dense``):
+
+        normal:   (A - sigma B)^{-1}
+        buckling: (B + sigma A)^{-1}, the pencil (A, B) = (G, K)
+
     ``kind``: "cholesky", "eigh" or "cg" (``kwargs`` go to CGFactor)."""
-    if mode == "buckling":
-        raise NotImplementedError(
-            "mode='buckling': the (B + sigma A)^{-1} factor waits for the "
-            "buckling slice (ROADMAP queue 1, item 14)")
-    if mode != "normal":
+    A, B = as_operator(A), as_operator(B)
+    if mode == "normal":
+        mat = A.to_dense() - sigma * B.to_dense()
+    elif mode == "buckling":
+        mat = B.to_dense() + sigma * A.to_dense()
+    else:
         raise ValueError(f"Unknown mode {mode!r}")
-    mat = as_operator(A).to_dense() - sigma * as_operator(B).to_dense()
     if kind == "cholesky":
         return CholeskyFactor.from_matrix(mat)
     if kind == "eigh":

@@ -22,18 +22,20 @@ from .operators import as_operator
 from .sync import host_bool, loop_exit
 
 
-def _normal_mode_only(mode):
-    if mode != "normal":
-        raise NotImplementedError(
-            f"mode={mode!r}: only the normal mode is ported (ROADMAP queue "
-            "1, item 14 lists buckling)")
-
-
 def map_ritz_values(theta, sigma, mode):
-    """Undo the shift-invert spectral map: lam = 1/theta + sigma."""
-    _normal_mode_only(mode)
-    lam = 1.0 / theta + sigma
-    return lam, torch.argsort(lam, stable=True)
+    """Undo the shift-invert spectral map, and the order of the wanted
+    modes first:
+
+        normal:   lam = 1/theta + sigma,        by lam
+        buckling: lam = sigma theta/(theta-1),  by -1/lam
+    """
+    if mode == "normal":
+        lam = 1.0 / theta + sigma
+        return lam, torch.argsort(lam, stable=True)
+    if mode == "buckling":
+        lam = sigma * theta / (theta - 1.0)
+        return lam, torch.argsort(-1.0 / lam, stable=True)
+    raise ValueError(f"Unknown mode {mode!r}")
 
 
 def _tridiagonal(alpha, beta):
@@ -162,12 +164,13 @@ def polish_ritz_block(A, B, factor, lam, Phi, sigma, mode, deflate=None,
     with a pencil Rayleigh-Ritz re-extraction.
 
     Each step applies the accurate factor to B Phi (warm-started at
-    Phi/(lam - sigma) when the factor has ``mv_warm``), B-orthonormalizes,
-    and re-extracts from the pencil projected on that block. Returns
+    Phi/(lam - sigma), or Phi lam/(lam - sigma) in buckling mode, when the
+    factor has ``mv_warm``), B-orthonormalizes, and re-extracts from the
+    pencil projected on that block: A phi = mu B phi, with lam = mu, or
+    the load factor lam = -1/mu in buckling mode, (A, B) = (G, K). Returns
     (lam, Phi, eig_res) with eig_res the measured pencil residual
-    ||A phi - lam B phi|| of the returned pairs.
+    ||A phi - mu B phi|| of the returned pairs.
     """
-    _normal_mode_only(mode)
     defl = _deflator(deflate)
 
     mv_warm = getattr(factor, "mv_warm", None)
@@ -175,8 +178,9 @@ def polish_ritz_block(A, B, factor, lam, Phi, sigma, mode, deflate=None,
         if mv_warm is not None:
             denom = lam - sigma
             zero = denom == 0.0
-            scale = torch.where(zero, 0.0,
-                                1.0 / torch.where(zero, 1.0, denom))
+            safe = torch.where(zero, 1.0, denom)
+            scale = torch.where(zero, 0.0, (lam / safe) if mode == "buckling"
+                                else 1.0 / safe)
             Z = mv_warm(B.mv(Phi), Phi * scale[None, :])
         else:
             Z = factor.mv(B.mv(Phi))
@@ -186,7 +190,12 @@ def polish_ritz_block(A, B, factor, lam, Phi, sigma, mode, deflate=None,
         Hp = 0.5 * (Hp + Hp.T)
         mu, Wp = torch.linalg.eigh(Hp)
         order = torch.argsort(mu, stable=True)
-        lam = mu[order]
+        if mode == "buckling":
+            zero = mu == 0.0
+            lam = torch.where(zero, torch.inf,
+                              -1.0 / torch.where(zero, 1.0, mu))[order]
+        else:
+            lam = mu[order]
         Wsel = Wp[:, order]
         mu_sel = mu[order]
         Phi = Z @ Wsel
@@ -206,7 +215,7 @@ def _block_lanczos_setup(A, B, factor, sigma, N, m, p, mode="normal",
                          sweep="exact"):
     """Block-Lanczos machinery: the per-step function and the initial
     state. ``step(t, s)`` advances block t of the state ``s`` in place."""
-    _normal_mode_only(mode)
+    del mode  # the same recurrence in every mode
     dtype = A.dtype
     n = A.shape[0]
     device = A.device
@@ -345,9 +354,15 @@ def _block_lanczos_extract(A, B, factor, sigma, N, mode, s, niter, p,
         # inactive / truncated directions (theta ~ 0) sort last
         scale = torch.max(torch.abs(theta))
         tiny = torch.abs(theta) <= 1e-12 * scale
-        lam_all = torch.where(tiny, torch.inf,
-                              1.0 / torch.where(tiny, 1.0, theta) + sigma)
-        order = torch.argsort(lam_all, stable=True)
+        safe = torch.where(tiny, 1.0, theta)
+        if mode == "buckling":
+            lam_all = torch.where(tiny, torch.inf,
+                                  sigma * safe / (safe - 1.0))
+            order = torch.argsort(torch.where(tiny, 0.0, -1.0 / lam_all),
+                                  stable=True)
+        else:
+            lam_all = torch.where(tiny, torch.inf, 1.0 / safe + sigma)
+            order = torch.argsort(lam_all, stable=True)
     else:
         lam_all, order = map_ritz_values(theta, sigma, mode)
 
@@ -400,12 +415,15 @@ def block_lanczos_solve(A, B, factor, sigma, N, m, p, mode="normal",
     m is rounded up to a multiple of p. With ``tol`` set the sweep exits
     once the N wanted pairs pass the block coupling bound (one host
     decision per check; ``sync.LOOP_EXITS`` counts which way it ended).
+    The exit picks the wanted pairs as the largest theta, which holds for
+    the normal map only: outside the normal mode the sweep runs all
+    blocks, as in JAX.
     """
     st = _block_lanczos_setup(A, B, factor, sigma, N, m, p, mode=mode,
                               seed=seed, v0=v0, deflate=deflate,
                               ortho=ortho, sweep=sweep)
     step, q, mtot, s = st.step, st.q, st.mtot, st.state
-    if tol is None:
+    if tol is None or mode != "normal":
         for t in range(q):
             step(t, s)
         niter = mtot
@@ -549,11 +567,14 @@ def lanczos_solve(A, B, factor, sigma, N, m, mode="normal", seed=12345,
     iteration may exit early (``lanczos_iteration``); the Ritz values of
     its decoupled inactive block (theta ~ 0) are mapped to +inf so they
     sort last. ``polish`` runs ``polish_ritz_block`` on the selection.
+    Outside the normal mode ``tol`` is ignored and all m steps run (the
+    exit's largest-theta selection is the normal map's), as in JAX.
     With v0=None the start vector is drawn from a ``torch.Generator``
     seeded with ``seed`` (JAX draws from ``jax.random``: parity runs pass
     v0).
     """
-    _normal_mode_only(mode)
+    if mode != "normal":
+        tol = None
     A = as_operator(A)
     B = as_operator(B)
     dtype = A.dtype

@@ -77,22 +77,32 @@ class GridStencilOperator:
     ``stencil_matvec``.
     """
 
-    def __init__(self, mats, dofs, n, W, grid_shape, ndof=2, Wp32=None,
-                 Wp64=None):
+    def __init__(self, mats, dofs, n, W, grid_shape, ndof=2, extra_diag=None,
+                 Wp32=None, Wp64=None):
         self.mats = mats  # (nelems, d, d) element matrices
         self.dofs = dofs  # (nelems, d) global DOF map
         self.n = n
-        self.W = W  # (nx+1, ny+1, 3, 3, ndof, ndof)
+        self.W = W  # (nx+1, ny+1, 3, 3, ndof, ndof), extra_diag folded in
         self.grid_shape = tuple(grid_shape)
         self.ndof = ndof
+        # (n,) diagonal beside the element matrices (the unit diagonal of
+        # masked Dirichlet DOFs), kept for the factors built from mats
+        self.extra_diag = extra_diag
         self.Wp32 = Wp32  # f32 planes for K1
         self.Wp64 = Wp64  # f64 planes for K2
 
     @classmethod
-    def from_element_operator(cls, op, grid_shape, ndof=2):
+    def from_element_operator(cls, op, grid_shape, ndof=2, extra_diag=None):
+        """The stencil of an ElementOperator, with ``extra_diag`` (n,)
+        folded into W's centre tap."""
         nx, ny = grid_shape
         W = stencil_from_elements(op.mats, nx, ny, ndof)
-        return cls(op.mats, op.dofs, op.n, W, grid_shape, ndof)
+        if extra_diag is not None:
+            dg = extra_diag.reshape(nx + 1, ny + 1, ndof)
+            for d in range(ndof):
+                W[:, :, 1, 1, d, d] += dg[:, :, d]
+        return cls(op.mats, op.dofs, op.n, W, grid_shape, ndof,
+                   extra_diag=extra_diag)
 
     @property
     def shape(self):
@@ -118,12 +128,17 @@ class GridStencilOperator:
                 if W.dtype == torch.float64 else None)
         return GridStencilOperator(
             self.mats, self.dofs, self.n, self.W, self.grid_shape, self.ndof,
+            extra_diag=self.extra_diag,
             Wp32=cuda_stencil.stencil_planes(W, self.ndof, torch.float32),
             Wp64=Wp64)
 
     def to_dense(self):
-        """The dense (n, n) matrix, summed from the element matrices."""
-        return element_dense(self.mats, self.dofs, self.n)
+        """The dense (n, n) matrix, summed from the element matrices, plus
+        the extra diagonal."""
+        out = element_dense(self.mats, self.dofs, self.n)
+        if self.extra_diag is not None:
+            out = out + torch.diag(self.extra_diag)
+        return out
 
     def mv(self, x):
         nx, ny = self.grid_shape

@@ -172,3 +172,48 @@ def test_tangent_on_card_matches_cpu():
     sign = np.sign(np.sum(gPhi * Phi, axis=0))
     assert np.abs(gdlam - dlam).max() <= 1e-10 * np.abs(dlam).max()
     assert np.abs(gdPhi * sign - dPhi).max() <= 1e-8 * np.abs(dPhi).max()
+
+
+@pytest.mark.parametrize("grid", [(64, 32), (512, 256)])
+def test_buckling_operators_match_twins(grid):
+    """K2 on the buckling model's masked operators at its design: K-hat
+    (unit diagonal on the clamped edge folded into W) and G, k 1 and 6,
+    against stencil_matvec, 1e-13 of 18 max|x| max|W|; each call launches
+    K2 once. Then the model's gradient (KS + aggregate seeds) with the
+    kernels on against the plain path at 24x12 on bcr_f32: 1e-9."""
+    require_cuda()
+    from eigd_tpu_torch.models.buckling import make_buckling_model
+
+    nx, ny = grid
+    topo = make_buckling_model(nx=nx, ny=ny, N=6, sigma=4.2e-3,
+                               factor_kind="bcr", device="cuda")
+    with torch.no_grad():
+        rhoE = element_density(topo.fltr.apply(topo.x), topo.conn)
+        u, _ = topo._static(rhoE)
+        G, K = topo._assemble_pencil((rhoE, u))
+    g = torch.Generator(device="cuda").manual_seed(nx)
+    for op in (K, G):
+        fast = op.with_kernels()
+        assert fast.extra_diag is op.extra_diag
+        for k in (1, 6):
+            x = torch.randn((topo.nvars, k), generator=g, device="cuda",
+                            dtype=torch.float64)
+            n = cs.K2_LAUNCHES
+            got = fast.mv(x)
+            assert cs.K2_LAUNCHES == n + 1
+            ref = stencil_matvec(op.W, x, nx, ny, 2)
+            bound = 1e-13 * 18 * x.abs().max() * op.W.abs().max()
+            assert (got - ref).abs().max() <= bound
+
+    grads = []
+    for kmv in ("off", "on"):
+        topo = make_buckling_model(nx=24, ny=12, N=4, sigma=4.2e-3,
+                                   factor_kind="bcr_f32", kernel_mv=kmv,
+                                   device="cuda")
+        topo.initialize()
+        topo.initialize_adjoint()
+        topo.add_ks_buckling_derivative(1.0, 100.0)
+        topo.add_eigenvector_aggregate_derivative(1.0, 1.0, [49, 51])
+        topo.finalize_adjoint()
+        grads.append(topo.xb)
+    assert (grads[1] - grads[0]).abs().max() <= 1e-9 * grads[0].abs().max()

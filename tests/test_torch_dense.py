@@ -85,7 +85,8 @@ def test_operators_and_as_operator(pencil):
                                       ("cg", 1e-10)])
 def test_factor_matches_jax(kind, tol):
     """make_shift_factor's mv on an SPD pencil (n 60), a vector and a
-    block; CG with the same maxiter."""
+    block, in the normal mode (A + 0.5 B) and the buckling mode
+    (B + 0.5 A); CG with the same maxiter."""
     A, B = make_pencil(60, seed=1)
     kw = {"maxiter": 40} if kind == "cg" else {}
     fj = jfac.make_shift_factor(jnp.asarray(A), jnp.asarray(B), -0.5,
@@ -101,8 +102,12 @@ def test_factor_matches_jax(kind, tol):
         assert not bool(tfac.CholeskyFactor.from_matrix(t(bad)).ok())
         assert not bool(jfac.CholeskyFactor.from_matrix(
             jnp.asarray(bad)).ok())
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tfac.make_shift_factor(t(A), t(B), 0.5, mode="buckling")
+    fj = jfac.make_shift_factor(jnp.asarray(A), jnp.asarray(B), 0.5,
+                                mode="buckling", kind=kind, **kw)
+    ft = tfac.make_shift_factor(t(A), DenseOperator(t(B)), 0.5,
+                                mode="buckling", kind=kind, **kw)
+    for x in (X, X[:, 0]):
+        assert rel(ft.mv(t(x)).numpy(), fj.mv(jnp.asarray(x))) <= tol
 
 
 def align(P, ref):

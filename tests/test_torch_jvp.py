@@ -28,11 +28,17 @@ import torch
 
 from eigd_tpu.fem import assembly as jfem
 from eigd_tpu.models.natural_frequency import make_model as j_make_model
+from eigd_tpu.ops.autodiff import EigProblem as j_problem
+from eigd_tpu.ops.autodiff import EighGenConfig as j_config
 from eigd_tpu.ops.autodiff import eigh_gen_tangent as j_tangent
+from eigd_tpu.ops.operators import DenseOperator as JDense
 from eigd_tpu_torch.fem import assembly as tfem
 from eigd_tpu_torch.models.natural_frequency import make_model as t_make_model
 from eigd_tpu_torch.ops import sync
+from eigd_tpu_torch.ops.autodiff import EigProblem as t_problem
+from eigd_tpu_torch.ops.autodiff import EighGenConfig as t_config
 from eigd_tpu_torch.ops.autodiff import eigh_gen_tangent, staged_jvp
+from eigd_tpu_torch.ops.operators import DenseOperator
 
 torch.set_num_threads(1)
 KW = dict(nx=12, ny=6, N=2, m=32, Lx=2.0, Ly=1.0, rfact=2.0, factor_kind="mg",
@@ -112,8 +118,41 @@ def test_staged_jvp_matches_reverse_mode(sweep):
 
 
 def test_tangent_is_normal_mode_only():
-    topo = t_model("exact", "off")
-    cfg = dataclasses.replace(topo.cfg, mode="buckling")
+    """The tangent outside the normal mode: in buckling mode, on a dense
+    (G, K) pencil along (dG, dK) from one start vector, lam, dlam and dPhi
+    (up to sign) against eigd_tpu's eigh_gen_tangent at 1e-9 of each
+    (tests/test_torch_buckling.py holds both to the directional oracle); a
+    mode with no tangent rule raises."""
+    rng = np.random.default_rng(17)
+    n = 36
+    S = rng.standard_normal((n, n))
+    K0 = S @ S.T + n * np.eye(n)
+    T = rng.standard_normal((n, n)) * 0.3
+    G0 = -(T @ T.T + 0.5 * np.eye(n))
+    dK, dG = rng.standard_normal((2, n, n))
+    dK, dG = 0.5 * (dK + dK.T), 0.05 * (dG + dG.T)
+    v0 = rng.uniform(-1.0, 1.0, n)
+    kw = dict(N=3, m=36, sigma=0.05, mode="buckling", adjoint_method="sibk",
+              adjoint_maxiter=60, nrestart=3)
+    jprob = j_problem(lambda th: (JDense(jnp.asarray(G0) + th * dG),
+                                  JDense(jnp.asarray(K0) + th * dK)),
+                      v0=lambda th: jnp.asarray(v0))
+    ref = [np.asarray(a) for a in j_tangent(
+        jnp.asarray(0.0), jnp.asarray(1.0), jprob, j_config(**kw))]
+    tG0, tK0, tdG, tdK = (torch.as_tensor(a) for a in (G0, K0, dG, dK))
+    tprob = dataclasses.replace(
+        t_problem(lambda th: (DenseOperator(tG0 + th * tdG),
+                              DenseOperator(tK0 + th * tdK))),
+        v0=lambda th: torch.as_tensor(v0))
+    cfg = t_config(**kw)
+    got = [a.numpy() for a in eigh_gen_tangent(
+        torch.tensor(0.0, dtype=torch.float64),
+        torch.tensor(1.0, dtype=torch.float64), tprob, cfg)]
+    sign = np.sign(np.sum(got[1] * ref[1], axis=0))
+    for a, b in ((got[0], ref[0]), (got[2], ref[2]),
+                 (got[3] * sign, ref[3])):
+        assert np.abs(a - b).max() <= 1e-9 * np.abs(b).max()
     with pytest.raises(NotImplementedError):
-        eigh_gen_tangent(t_pre(topo)(topo.x), torch.as_tensor(DTHETA),
-                         topo.problem, cfg)
+        eigh_gen_tangent(torch.tensor(0.0, dtype=torch.float64),
+                         torch.tensor(1.0, dtype=torch.float64), tprob,
+                         dataclasses.replace(cfg, mode="cayley"))
