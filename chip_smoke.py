@@ -46,7 +46,15 @@ then drives these paths:
   check and forward mode against reverse mode; the block-tridiagonal
   factor against it, the f32 refined factor against the f64 one at
   128x64 (and measured at 512x256), and examples/buckling.py's dense flow
-  with each adjoint method.
+  with each adjoint method;
+* the CRM wingbox at 86,352 padded DOF (``[crm]``): the modal-compliance
+  protocol cold and warm on JAX's defaults (``bcr_f32``: PCGFactor on the
+  equilibrated, jittered f32 BCR), on f64 ``bcr`` and on ``bcr_f32`` with
+  the exact sweep; forward mode (``objective_jvp``) against the reverse
+  mode on each, central differences and the gaps to f64 ``bcr`` held
+  where the forward converges (``phase_crm``); and the flagship at
+  998,712 padded DOF (``[crm1m]``) on JAX's defaults and on f64 ``bcr``,
+  jvp-vs-vjp held on the latter.
 
 Each phase's wall time is printed as ``[time]``.
 
@@ -1414,6 +1422,115 @@ def phase_buckle(gpu, gen, grid=BUCKLE_GRID, small=(128, 64),
     return launches, rows
 
 
+CRM_SHAPES = {"86k": (86_352, 257, 336), "1m": (998_712, 3_201, 312)}
+
+
+def crm_passes(config, tag, gpu, device, **over):
+    """The CRM of ``config`` (diag/configs.py; ``over`` replaces keywords)
+    built and checked against its padded size, then the protocol twice,
+    cold and warm (``diag.crm.protocol_pass``): times, host waits by
+    site, PCG steps and exits, the peak, the pencil residuals. Returns
+    (crm, the warm pass)."""
+    from eigd_tpu_torch.diag import crm as dc
+
+    crm, t_build = dc.build(config, device, **over)
+    dc.describe(crm, tag, t_build)
+    if isinstance(config, str):
+        check((crm.nvars, crm.nb, crm.b) == CRM_SHAPES[config],
+              f"[{tag}] layout {(crm.nvars, crm.nb, crm.b)}")
+    for run in ("cold", "warm"):
+        t0 = time.perf_counter()
+        out = dc.protocol_pass(crm, f"{tag} {run}")
+        log(f"[{tag} {run}] pass {time.perf_counter() - t0:.3f} s on {gpu}")
+        lam = crm.lam.cpu().numpy()
+        check(np.all(np.isfinite(lam)) and np.all(np.diff(lam) > 0)
+              and bool(torch.isfinite(crm.xb).all()),
+              f"[{tag}] lam or xb not finite, or lam not ascending")
+    return crm, out
+
+
+def crm_checks(crm, tag, held):
+    """objective_jvp against p @ xb (p default_rng(3); bound 1e-8,
+    tests/test_crm.py:211-227, always held) and a central difference at
+    h = 1e-6 x0[0] (p default_rng(1); bound 1e-5, tests/test_crm.py:242-
+    269, held when ``held``), Richardson-4 printed. Returns (lam, p @ xb)
+    of the solve at x0 (the FD points solve again)."""
+    from eigd_tpu_torch.diag import crm as dc
+
+    lam = crm.lam.cpu().numpy()
+    rel, proj, _, _ = dc.jvp_check(crm, tag)
+    check(rel <= 1e-8, f"[{tag}] jvp disagrees with the reverse mode")
+    rel_fd, _ = dc.fd_check(crm, tag)
+    log(f"[{tag}] FD bound 1e-5 {'held' if held else 'printed, not held'}")
+    if held:
+        check(rel_fd <= 1e-5, f"[{tag}] xb fails the FD check")
+    return lam, proj
+
+
+def crm_against(got, ref, tag, held):
+    """(lam, p @ xb) of a model against ``ref``, those of the f64 ``bcr``
+    model: bounds 1e-9 and 1e-7, held when ``held``."""
+    (lam, proj) = got
+    gap = float(np.max(np.abs(lam - ref[0]) / np.abs(ref[0])))
+    rel = abs(proj - ref[1]) / abs(ref[1])
+    log(f"[{tag}] against f64 bcr: eigenvalues rel {gap:.3e} (bound 1e-9), "
+        f"projected gradient {proj!r} vs {ref[1]!r} rel {rel:.3e} (bound "
+        f"1e-7); {'held' if held else 'printed, not held'}")
+    if held:
+        check(gap <= 1e-9, f"[{tag}] eigenvalues disagree with f64 bcr")
+        check(rel <= 1e-7, f"[{tag}] projected gradient disagrees with "
+                           "f64 bcr")
+
+
+def phase_crm(gpu, config="86k", device="cuda"):
+    """The CRM wingbox at 86,352 padded DOF, three ways, each with the
+    protocol cold and warm and jvp-vs-vjp held at 1e-8 (``crm_checks``):
+
+    * ``[crm]``: JAX's defaults, ``bcr_f32`` (PCGFactor on the jittered
+      f32 BCR), block 8, m 96, the approx sweep, polish 3, the mixed SIBK.
+      They leave pencil residuals up to 1e-5 (PERF.md), too coarse for a
+      central difference at 1e-6 of x0: its FD and its gaps to f64
+      ``bcr`` are printed, not held.
+    * ``[crm bcr]``: the f64 ``bcr`` factor (the sweep then applies it
+      exactly): FD held at 1e-5; the reference of the gaps.
+    * ``[crm exact]``: ``bcr_f32`` with JAX's below-60,000-DOF sweep
+      (exact, no polish): FD held at 1e-5, and against ``[crm bcr]``
+      eigenvalues 1e-9 and the projected gradient 1e-7."""
+    crm, _ = crm_passes(config, "crm", gpu, device)
+    got = crm_checks(crm, "crm", held=False)
+    del crm
+    gc.collect()
+    crm, _ = crm_passes(config, "crm bcr", gpu, device, factor_kind="bcr")
+    ref = crm_checks(crm, "crm bcr", held=True)
+    del crm
+    gc.collect()
+    crm_against(got, ref, "crm", held=False)
+    crm, _ = crm_passes(config, "crm exact", gpu, device,
+                        lanczos_sweep="exact", lanczos_polish=0)
+    crm_against(crm_checks(crm, "crm exact", held=True), ref, "crm exact",
+                held=True)
+
+
+def phase_crm1m(gpu, config="1m", device="cuda"):
+    """The CRM flagship at 998,712 padded DOF: one protocol pass after a
+    warm-up, the times and the peak, twice. ``[crm1m]`` on JAX's defaults
+    (``bcr_f32``): its f32 approx solves stop at residuals about 0.5 and
+    its accurate PCG at the 200-step cap (PERF.md), so its
+    jvp-vs-vjp is printed, not held. ``[crm1m bcr]`` on the f64 ``bcr``
+    factor: jvp-vs-vjp held at 1e-8."""
+    from eigd_tpu_torch.diag import crm as dc
+
+    crm, _ = crm_passes(config, "crm1m", gpu, device)
+    rel, _, _, _ = dc.jvp_check(crm, "crm1m")
+    log("[crm1m] jvp-vs-vjp bound 1e-8 printed, not held")
+    del crm
+    gc.collect()
+    torch.cuda.empty_cache()
+    crm, _ = crm_passes(config, "crm1m bcr", gpu, device, factor_kind="bcr")
+    rel, _, _, _ = dc.jvp_check(crm, "crm1m bcr")
+    check(rel <= 1e-8, "[crm1m bcr] jvp disagrees with the reverse mode")
+
+
 def kernel_entry(name, source, replaces, launches, rep, **extra):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1472,6 +1589,12 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     lbk, sbk = phase("buckle", phase_buckle, gpu, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("crm", phase_crm, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("crm1m", phase_crm1m, gpu)
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     rows = {r["name"]: r for r in probe_rows}

@@ -17,7 +17,7 @@ from .ops.adjoint import (add_eig_total_derivative,
                           generate_adjoint_correction, laa, pcpg, pgmres,
                           sibk)
 from .ops.autodiff import (EigProblem, EighGenConfig, eigh_gen,
-                           eigh_gen_dense, solve_spd)
+                           eigh_gen_dense, eigh_gen_fwdmode, solve_spd)
 from .ops.blockfactor import BCRFactor, BlockTridiagFactor, RefinedFactor
 from .ops.factor import (CGFactor, CholeskyFactor, EighFactor,
                          make_shift_factor)
@@ -60,5 +60,6 @@ __all__ = [
     "EighGenConfig",
     "eigh_gen",
     "eigh_gen_dense",
+    "eigh_gen_fwdmode",
     "solve_spd",
 ]

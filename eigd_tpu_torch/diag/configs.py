@@ -10,6 +10,12 @@ adjoint rtol 1e-7. Both run the V-cycle on the kernels. Nothing is cut.
 (263,682 DOF) on the f64 cyclic-reduction factor, every other option at
 its default (spatial filter, m 60, single-vector Lanczos, SIBK), with the
 shift from a dense pilot at 32x16 (``BUCKLE_PILOT``, ``SIGMA_MARGIN``).
+``crm_86k``, ``crm_143k``, ``crm_1m``: the CRM wingbox of
+``scripts/bench_crm.py:40-44`` (86,352 padded DOF), of
+``tests/test_crm.py:275-284`` (143,832) and of
+``scripts/run_crm_large.py:54-62`` (998,712), N 6 and every other option
+JAX's ``CRM`` default: ``bcr_f32`` (PCGFactor on the jittered f32 BCR),
+block 8, the approx sweep, polish 3, the mixed SIBK. Nothing is cut.
 """
 
 from __future__ import annotations
@@ -63,3 +69,25 @@ def tail(lam, Q):
     """The bench objective (bench.py:268-276)."""
     eta = torch.exp(-2.0 * (lam - lam[0]))
     return torch.sum(torch.sqrt(lam)) + torch.sum(eta[None, :] * Q[:8] ** 2)
+
+
+def crm_86k():
+    """The CRM bench mesh: 11,720 nodes, 12,288 elements, 257 stations x
+    b 336 = 86,352 padded DOF, m 96."""
+    return dict(nspan=256, nchord=16, nheight=4, N=6, m=96)
+
+
+def crm_143k():
+    """The CRM record mesh: 19,731 nodes, 20,664 elements, 461 x 312 =
+    143,832 padded DOF."""
+    return dict(nspan=460, nchord=12, nheight=6, N=6)
+
+
+def crm_1m():
+    """The CRM flagship mesh: 137,236 nodes, 144,000 elements, 3,201 x
+    312 = 998,712 padded DOF."""
+    return dict(nspan=3200, nchord=12, nheight=6, N=6, span=29.38,
+                c_root=7.0)
+
+
+CRM_CONFIGS = {"86k": crm_86k, "143k": crm_143k, "1m": crm_1m}

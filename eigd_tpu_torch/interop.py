@@ -18,6 +18,7 @@ import torch
 
 from .fem.filter import NodeFilter
 from .models.buckling import BucklingTopologyAnalysis
+from .models.crm import CRM
 from .models.natural_frequency import TopologyAnalysis
 from .models.thermal import ThermalTopologyAnalysis
 from .ops.factor import CholeskyFactor
@@ -126,6 +127,24 @@ def buckling_from_numpy(x, X, conn, free_dofs, forces, filter_state, r0,
         v = _t(v0, device, torch.float64)
         topo.problem = dataclasses.replace(topo.problem, v0=lambda th: v)
     return topo
+
+
+def crm_from_numpy(mesh, x, v0=None, device="cuda", **config):
+    """A ``CRM`` on the given state.
+
+    mesh : dict of X, conn, comp, names, station (the node -> station
+    map; JAX's ``station_of_node``) and thickness (None for t0); x : the
+    thickness design vector; v0 : the Lanczos start vector (JAX's, as
+    numpy: full padded length on the scalable path, free-DOF length on the
+    dense one), or None for the port's own; ``config`` : the CRM keyword
+    fields (N, m, E, nu, rho, factor_kind, lanczos_*, ...).
+    """
+    crm = CRM(_mesh=mesh, device=device, **config)
+    crm.x = _t(x, device, torch.float64)
+    if v0 is not None:
+        v = _t(v0, device, torch.float64)
+        crm.problem = dataclasses.replace(crm.problem, v0=lambda th: v)
+    return crm
 
 
 def stencil_operator_from_numpy(W, mats, dofs, n, grid_shape, ndof,

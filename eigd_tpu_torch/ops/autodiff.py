@@ -23,9 +23,10 @@ cotangents. ``eigh_gen_oracle`` and ``eigh_gen_directional_oracle`` are
 the plain dense references of the tests. ``solve_spd`` is the static
 solve u = K(theta)^{-1} f with a hand-written reverse and forward rule.
 
-Forward mode (``eigh_gen_tangent``, ``staged_jvp``) is the counterpart of
-``eigd_tpu/ops/autodiff.py:391-540``: the tangent solves the adjoint's
-projected systems with the operator tangents as right-hand sides.
+Forward mode (``eigh_gen_tangent``, ``eigh_gen_fwdmode``, ``staged_jvp``)
+is the counterpart of ``eigd_tpu/ops/autodiff.py:358-540``: the tangent
+solves the adjoint's projected systems with the operator tangents as
+right-hand sides.
 """
 
 from __future__ import annotations
@@ -459,6 +460,68 @@ def eigh_gen_tangent(theta, dtheta, problem, cfg, fwd=None):
         Cd = torch.where(close, -0.5 * dBG, 0.0)
         dPhi = psi + Phi @ Cd
     return lam, Phi, dlam, dPhi
+
+
+class EighGenFwd(torch.autograd.Function):
+    """``eigh_gen``'s primal with a forward-mode rule (``eigh_gen_fwdmode``).
+    The forward solve reaches ``setup_context`` through ``box``, as in
+    ``SolveSPD``; the ctx keeps it as ``_keep_solve`` does, the outputs
+    saved as tensors, and the jvp rule runs ``eigh_gen_tangent`` on it."""
+
+    @staticmethod
+    def forward(problem, cfg, packed, box, *leaves):
+        theta = leaves if packed else leaves[0]
+        A, B = problem.assemble(theta)
+        box.fwd = _forward_ops(theta, problem, A, B, cfg)
+        res = box.fwd[2]
+        return res.lam, res.Phi
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        problem, cfg, packed, box, *leaves = inputs
+        A, B, res, factor = box.fwd
+        ctx.save_for_forward(*leaves, *output)
+        ctx.solve = (A, B, dataclasses.replace(res, lam=None, Phi=None,
+                                               BV=None), factor)
+        ctx.problem, ctx.cfg, ctx.packed = problem, cfg, packed
+
+    @staticmethod
+    def jvp(ctx, _problem, _cfg, _packed, _box, *dleaves):
+        leaves, fwd = _kept_solve(ctx)
+        dleaves = [torch.zeros_like(t) if d is None else d
+                   for t, d in zip(leaves, dleaves)]
+        if ctx.packed:
+            theta, dtheta = tuple(leaves), tuple(dleaves)
+        else:
+            theta, dtheta = leaves[0], dleaves[0]
+        _, _, dlam, dPhi = eigh_gen_tangent(theta, dtheta, ctx.problem,
+                                            ctx.cfg, fwd=fwd)
+        return dlam, dPhi
+
+
+def eigh_gen_fwdmode(theta, problem: EigProblem, cfg: EighGenConfig):
+    """``eigh_gen`` with a forward-mode derivative rule, counterpart of
+    ``eigd_tpu/ops/autodiff.py:358``: ``torch.func.jvp`` of any objective
+    through it gives the exact directional derivative (the tangent of
+    ``eigh_gen_tangent``, normal or buckling mode), the machine-precision
+    oracle of the reverse-mode ``eigh_gen``, as the reference's
+    complex-step channel is. The primal is ``eigh_gen``'s; there is no
+    reverse rule. theta is a tensor or a tuple of tensors."""
+    box = types.SimpleNamespace(fwd=None)
+    if isinstance(theta, (tuple, list)):
+        return EighGenFwd.apply(problem, cfg, True, box, *theta)
+    return EighGenFwd.apply(problem, cfg, False, box, theta)
+
+
+def kept_forward(out):
+    """The forward solve ``(A, B, res, factor)`` that ``eigh_gen`` keeps
+    for the backward pass of its output ``out`` (lam or Phi, with its
+    graph), for ``eigh_gen_tangent(..., fwd=)``: a tangent on the very
+    solve a reverse pass differentiates."""
+    ctx = out.grad_fn
+    if ctx is None or not hasattr(ctx, "solve"):
+        raise ValueError("not an output of eigh_gen that holds its graph")
+    return _kept_solve(ctx)[1]
 
 
 def staged_jvp(pre, tail, problem: EigProblem, cfg: EighGenConfig):

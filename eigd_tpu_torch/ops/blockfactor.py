@@ -398,6 +398,7 @@ class PCGFactor:
         self.maxiter = maxiter
         self.approx_tol = approx_tol
         self.approx_maxiter = approx_maxiter
+        self._op32 = None  # the f32 element operator of the approx channel
 
     @property
     def shape(self):
@@ -424,7 +425,11 @@ class PCGFactor:
         """The approximate channel's PCG with f32 state, an f32 element
         matvec and the f32 preconditioner."""
         f32 = torch.float32
-        op32 = ElementOperator(self.op.mats.to(f32), self.op.dofs, self.op.n)
+        if self._op32 is None:
+            # cast once a factor: every approx apply reads the same copy
+            self._op32 = ElementOperator(self.op.mats.to(f32), self.op.dofs,
+                                         self.op.n)
+        op32 = self._op32
         s32 = self.s.to(f32)[:, None]
         mask32 = None if self.mask is None else self.mask.to(f32)
 

@@ -71,13 +71,14 @@ def floor_variant_ref(kind, W, x_m1, x_0, x_p1, ndof, k):
 
 def dma_probe_ref(slabs, W, Yo, with_w):
     """Plain PyTorch K4: sum of the slabs' first Yo columns, plus W's
-    plane 0 when ``with_w``."""
-    acc = slabs[0][:, :, :Yo]
+    plane 0 when ``with_w``, in a new tensor as the kernel's (one slab
+    without W is then a copy, never the input itself)."""
+    acc = slabs[0][:, :, :Yo].clone(memory_format=torch.contiguous_format)
     for s in slabs[1:]:
-        acc = acc + s[:, :, :Yo]
+        acc += s[:, :, :Yo]
     if with_w:
-        acc = acc + W[0, :, :Yo][None]
-    return acc.contiguous()
+        acc += W[0, :, :Yo][None]
+    return acc
 
 
 # rows_kernel (csrc/probes.cu): a block of ROW_WARPS warps, one output row

@@ -221,8 +221,10 @@ def _block_lanczos_setup(A, B, factor, sigma, N, m, p, mode="normal",
     device = A.device
     if sweep == "approx":
         # the factor's inexact f32 solve (its forward-sweep channel when it
-        # has one); the polish's accurate applies recover the eigenpairs
-        approx_fn = getattr(factor, "sweep_mv", None) or factor.approx_mv
+        # has one); the polish's accurate applies recover the eigenpairs.
+        # A factor with neither (an f64 BCRFactor) applies exactly, as in JAX
+        approx_fn = (getattr(factor, "sweep_mv", None)
+                     or getattr(factor, "approx_mv", None) or factor.mv)
 
         def apply_fn(Xb):
             return approx_fn(Xb).to(dtype)

@@ -3,13 +3,25 @@
 Counterpart of ``eigd_tpu/ops/operators.py``: an explicit dense matrix, a
 diagonal, and the finite-element operator (per-element dense blocks plus a
 DOF map). Every ``mv`` accepts a vector (n,) or a block (n, k). The
-element matvec is a gather, a batched matmul and an ``index_add`` scatter
-in place of JAX's ``segment_sum``.
+element matvec is a gather, a batched matmul and a scatter-add in place of
+JAX's ``segment_sum`` (``scatter_rows``: the same sums in the same order
+on every run, on the CPU and on the card).
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def scatter_rows(vals, index, n):
+    """A new (n, ...) tensor with out[index[i]] += vals[i]: ``index_add``
+    on the CPU, ``index_put_`` with accumulate on CUDA, which sorts the
+    index and sums each row's terms in order, where CUDA's ``index_add``
+    sums them by atomics in a different order on every run."""
+    out = vals.new_zeros((n,) + tuple(vals.shape[1:]))
+    if vals.is_cuda:
+        return out.index_put_((index,), vals, accumulate=True)
+    return out.index_add_(0, index, vals)
 
 
 def element_dense(mats, dofs, n):
@@ -99,14 +111,17 @@ class ElementOperator:
         return self.mats.device
 
     def mv(self, x):
+        """A x, in the promoted dtype of A and x as JAX's einsum computes
+        it (the mixed SIBK ladder hands f32 blocks to f64 operators)."""
         squeeze = x.ndim == 1
         if squeeze:
             x = x[:, None]
+        dt = torch.promote_types(self.mats.dtype, x.dtype)
+        x = x.to(dt)
         xe = x[self.dofs]  # (nelems, d, k)
-        ye = torch.bmm(self.mats, xe)
-        y = x.new_zeros((self.n, x.shape[1]))
-        y = y.index_add(0, self.dofs.reshape(-1),
-                        ye.reshape(-1, x.shape[1]))
+        ye = torch.bmm(self.mats.to(dt), xe)
+        y = scatter_rows(ye.reshape(-1, x.shape[1]), self.dofs.reshape(-1),
+                         self.n)
         return y[:, 0] if squeeze else y
 
     def to_dense(self):

@@ -217,3 +217,47 @@ def test_buckling_operators_match_twins(grid):
         topo.finalize_adjoint()
         grads.append(topo.xb)
     assert (grads[1] - grads[0]).abs().max() <= 1e-9 * grads[0].abs().max()
+
+
+@pytest.mark.parametrize("kind", ["cholesky", "bcr_f32"])
+def test_crm_on_card_matches_cpu(kind):
+    """The CRM at nspan 8 (nchord 2, nheight 1, N 4, m 40, nribs 2) on the
+    card against the CPU, one protocol pass each from the same start
+    vector: eigenvalues 1e-10, xb 1e-8 (index_add sums in another order
+    on the card, so not bitwise)."""
+    require_cuda()
+    from eigd_tpu_torch.models.crm import CRM
+
+    out = []
+    for device in ("cpu", "cuda"):
+        crm = CRM(nspan=8, nchord=2, nheight=1, N=4, m=40, nribs=2,
+                  factor_kind=kind, device=device)
+        crm.initialize()
+        crm.initialize_adjoint()
+        crm.add_modal_compliance_derivative(1.0)
+        crm.finalize_adjoint()
+        out.append((crm.lam.cpu().numpy(), crm.xb.cpu().numpy()))
+    (lam_c, xb_c), (lam_g, xb_g) = out
+    assert np.abs(lam_g - lam_c).max() <= 1e-10 * np.abs(lam_c).max()
+    assert np.abs(xb_g - xb_c).max() <= 1e-8 * np.abs(xb_c).max()
+
+
+def test_crm_protocol_matches_autograd_on_card():
+    """The protocol's xb against torch.autograd of _solve_fn with the same
+    seeds, on the card (bcr_f32, nspan 4): 1e-12, where the CPU agrees
+    bitwise (tests/test_torch_crm.py): the second solve sums its
+    index_adds in another order."""
+    require_cuda()
+    from eigd_tpu_torch.models.crm import CRM
+
+    crm = CRM(nspan=4, nchord=2, nheight=1, N=3, m=40, nribs=1,
+              device="cuda")
+    crm.initialize()
+    crm.initialize_adjoint()
+    crm.add_modal_compliance_derivative(1.0)
+    crm.finalize_adjoint()
+    x = crm.x.clone().requires_grad_(True)
+    lam, Qr = crm._solve_fn(x)
+    (g,) = torch.autograd.grad((lam, Qr), x, (crm.lamb, crm.Qrb))
+    gap = float((g - crm.xb).abs().max() / crm.xb.abs().max())
+    assert gap <= 1e-12, gap

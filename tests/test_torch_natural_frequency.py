@@ -104,7 +104,9 @@ def test_port_imports_no_jax():
             "eigd_tpu_torch.diag.build_time, "
             "eigd_tpu_torch.diag.protocol_peak, "
             "eigd_tpu_torch.diag.f32_shift, "
-            "eigd_tpu_torch.diag.stencil_host, chip_smoke; "
+            "eigd_tpu_torch.diag.stencil_host, eigd_tpu_torch.models.crm, "
+            "eigd_tpu_torch.fem.shell, eigd_tpu_torch.fem.bdf, "
+            "eigd_tpu_torch.diag.crm, chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'eigd_tpu.')) or m == 'eigd_tpu']; "
             "assert not bad, bad")

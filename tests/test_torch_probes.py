@@ -113,6 +113,26 @@ def test_dma_probe_matches_pallas(interpret, n_slabs, with_w, Yx, Yw, Yo):
     assert np.abs(got - ref).max() <= 1e-6 * np.abs(ref).max()
 
 
+@pytest.mark.parametrize("Yx,Yo", [(12, 10), (640, 640)],
+                         ids=["unaligned", "aligned"])
+@pytest.mark.parametrize("with_w", [False, True])
+@pytest.mark.parametrize("n_slabs", [1, 3])
+def test_dma_probe_twin_returns_a_new_tensor(n_slabs, with_w, Yx, Yo):
+    """K4's plain twin writes its own output, as the kernel does: in the
+    aligned one-slab case without W the first Yo columns of slab 0 are
+    the whole slab, and the twin must still copy them (a view of its
+    input would time no work)."""
+    g = torch.Generator().manual_seed(n_slabs + 2 * with_w)
+    slabs = [torch.randn((3, 16, Yx), generator=g) for _ in range(n_slabs)]
+    W = torch.randn((4, 16, Yo), generator=g)
+    got = cuda_probes.dma_probe_ref(slabs, W, Yo, with_w)
+    assert got.is_contiguous() and got.shape == (3, 16, Yo)
+    assert all(got.untyped_storage().data_ptr()
+               != t.untyped_storage().data_ptr() for t in slabs + [W])
+    ref = sum(s[:, :, :Yo] for s in slabs) + (W[0, :, :Yo] if with_w else 0)
+    assert torch.equal(got, ref)
+
+
 @pytest.mark.parametrize("R", [1, 37, 1040])
 def test_row_plan_covers_every_output_once(R):
     """rows_kernel's launch plan (K4 and K3 copy) at the shapes of
