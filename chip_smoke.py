@@ -56,6 +56,15 @@ then drives these paths:
   998,712 padded DOF (``[crm1m]``) on JAX's defaults and on f64 ``bcr``,
   jvp-vs-vjp held on the latter.
 
+Beside these: ``EighGenConfig.measure_eig_res`` on the 263k model at
+polish 0 (``[measure]``: the measured pencil residual against one
+recomputed on K2, the solve unmoved by the flag); the Cayley map of
+``BasicLanczos`` at n 2,000 (in ``[dense]``); the four example CLIs'
+``main()`` at their default sizes, each FD-checked (``[examples]``); and
+on [thermal1m]'s live 1M model (``[thermal-dl]``) the ``dl`` adjoint
+against SIBK and the forward mode, ``BasicLanczos`` with its dl and sibk
+adjoints, and ``IRAM`` (thick restart at m 40), K1/K2 counted in each.
+
 Each phase's wall time is printed as ``[time]``.
 
 Usage: ``python3 chip_smoke.py`` from the root of the repository, on a
@@ -567,6 +576,50 @@ def phase_minfreq(topo, gpu):
     return launches
 
 
+def phase_measure(topo, gpu):
+    """EighGenConfig.measure_eig_res on the main path's 263k model at
+    polish 0 (block 16, local ortho, the approx sweep, the mg factor on
+    K1/K2): the coupling bound eig_res beside the measured pencil
+    residual eig_res_measured of the six modes; the measurement against
+    an independent ||A Phi - B Phi lam|| on K2 (1e-10 relative); lam and
+    Phi against the same solve without the flag (1e-14 relative).
+    Returns the K1/K2 launches of the measured solve."""
+    import dataclasses
+
+    from eigd_tpu_torch.ops.autodiff import _forward_ops
+
+    rhoE = element_density_of(topo)
+    out = {}
+    for flag in (True, False):
+        cfg = dataclasses.replace(topo.cfg, polish=0, measure_eig_res=flag)
+        counters_zero(topo.device)
+        sync_device(topo.device)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            A, B = topo.problem.assemble(rhoE)
+            A, B, res, _ = _forward_ops(rhoE, topo.problem, A, B, cfg)
+        sync_device(topo.device)
+        out[flag] = (res, time.perf_counter() - t0, launches_now())
+    res, sec, launches = out[True]
+    ref = out[False][0]
+    with torch.no_grad():
+        R = A.mv(res.Phi) - B.mv(res.Phi) * res.lam[None, :]
+        direct = torch.sqrt(torch.sum(R * R, dim=0))
+    gap = float(((res.eig_res_measured - direct).abs() / direct).max())
+    moved = max(relmax(res.lam, ref.lam), relmax(res.Phi, ref.Phi))
+    log(f"[measure] {topo.nvars} DOF polish 0: coupling bound eig_res "
+        f"{res.eig_res.tolist()}  eig_res_measured "
+        f"{res.eig_res_measured.tolist()}")
+    log(f"[measure] measured vs recomputed rel {gap:.3e} (bound 1e-10); "
+        f"lam/Phi with vs without the flag rel {moved:.3e} (bound 1e-14); "
+        f"solve {sec:.3f} s with, {out[False][1]:.3f} s without; K1 "
+        f"launches {launches['K1']}  K2 launches {launches['K2']} on {gpu}")
+    check(ref.eig_res_measured is None, "[measure] measured without the flag")
+    check(gap <= 1e-10, "[measure] measured residual disagrees")
+    check(moved <= 1e-14, "[measure] the measurement moved the solve")
+    return launches
+
+
 def make_pencil(n, seed=0):
     """The pencil of tests/test_adjoint.py: eigenvalues 1..10^1.5 then
     100-300, congruent to a B near the identity."""
@@ -614,6 +667,57 @@ def dense_gradients(n, N, m, device):
     return out, t_oracle
 
 
+def dense_cayley(gpu, device, n=2000, N=6):
+    """BasicLanczos(mode="cayley") on the pencil at n 2,000 (sigma 0.5,
+    below lam_1 = 1; m 60) against cuSOLVER's eigh of the Cholesky-reduced
+    pencil (eigh_gen_oracle) at rtol 1e-9."""
+    from eigd_tpu_torch import BasicLanczos, make_shift_factor
+    from eigd_tpu_torch.ops.autodiff import eigh_gen_oracle
+
+    A, B = (torch.as_tensor(a, device=device) for a in make_pencil(n, 3))
+    sync_device(device)
+    t0 = time.perf_counter()
+    solver = BasicLanczos(N=N, m=60, mode="cayley")
+    lam, _ = solver.solve(A, B, make_shift_factor(A, B, 0.5), 0.5)
+    sync_device(device)
+    sec = time.perf_counter() - t0
+    ref, _ = eigh_gen_oracle(A, B, N)
+    gap = float(((lam - ref).abs() / ref.abs()).max())
+    log(f"[dense] cayley n {n} N {N}: lam vs eigh rel {gap:.3e} (bound "
+        f"1e-9), eig_res max {float(solver.eig_res.max()):.3e}, {sec:.3f} s"
+        f" on {gpu}")
+    check(gap <= 1e-9, "[dense] the Cayley map disagrees with eigh")
+
+
+def phase_examples(gpu, device="cuda"):
+    """The four example CLIs' main() at their default sizes (those of
+    examples/*.py): natural frequency 32x16 dense, the thermal transient and
+    sweep at 16x16, buckling 24x12 (its 12x6 pilot), the CRM at nspan 64;
+    each gradient held against its central difference at the bar JAX's
+    tests hold that flow to."""
+    import importlib
+
+    runs = [("natural_frequency", [], 1e-6), ("thermal", ["transient"], 1e-6),
+            ("thermal", [], None), ("buckling", [], 5e-6), ("crm", [], 1e-5)]
+    for name, argv, bar in runs:
+        mod = importlib.import_module(f"eigd_tpu_torch.examples.{name}")
+        t0 = time.perf_counter()
+        data = mod.main(argv + ["--device", device])
+        sec = time.perf_counter() - t0
+        what = f"{name} {' '.join(argv) or 'default'}"
+        if bar is None:
+            log(f"[examples] {what}: ||xb|| by epsilon "
+                f"{[(d['epsilon'], d['xb_norm']) for d in data]} in "
+                f"{sec:.2f} s on {gpu}")
+            check(all(np.isfinite(d["xb_norm"]) for d in data),
+                  f"[examples] {what} not finite")
+            continue
+        err = data.get("fd_err", data.get("cd_err"))
+        log(f"[examples] {what}: FD rel error {err:.3e} (bound {bar:g}) in "
+            f"{sec:.2f} s on {gpu}")
+        check(err <= bar, f"[examples] {what} fails its FD bar")
+
+
 def phase_dense(gpu, device="cuda", ks_grid=(16, 8), example_grid=(32, 16)):
     """The dense entry points: eigh_gen_dense against the oracle (n 80,
     N 4, m 55 as tests/test_adjoint.py, and n 2,000, N 6; bound 1e-8),
@@ -630,6 +734,7 @@ def phase_dense(gpu, device="cuda", ks_grid=(16, 8), example_grid=(32, 16)):
                 f"{t_oracle:.3f} s) on {gpu}")
             check(gap <= 1e-8, f"[dense] {method} gradient disagrees with "
                                f"the oracle at n {n}")
+    dense_cayley(gpu, device)
 
     np.random.seed(0)
     nx, ny = ks_grid
@@ -799,15 +904,20 @@ def stencil_row_nd1(W, nx, ny, k, dtype, gen, nd=1, what=""):
     return dict(r, max_abs_err=err)
 
 
+def element_density_of(topo):
+    """The model's element densities at its design, without autograd."""
+    from eigd_tpu_torch.fem.assembly import element_density
+
+    with torch.no_grad():
+        return element_density(topo.fltr.apply(topo.x), topo.conn)
+
+
 def thermal_rows(topo, gen):
     """K1 and K2 at ndof 1 on the model's shifted stencil at x0, at the
     column counts its path gives them: k 1 (single-vector Lanczos and its
     PCG) and k Nmax (the SIBK block)."""
-    from eigd_tpu_torch.fem.assembly import element_density
-
     with torch.no_grad():
-        rhoE = element_density(topo.fltr.apply(topo.x), topo.conn)
-        A, B = topo.problem.assemble(rhoE)
+        A, B = topo.problem.assemble(element_density_of(topo))
         W = A.W - topo.sigma * B.W
     nx, ny = topo.grid_shape
     rows = [stencil_row_nd1(W.float(), nx, ny, k, torch.float32, gen)
@@ -881,7 +991,9 @@ def phase_thermal1m(gpu, gen, grid=THERMAL_GRID, device="cuda"):
     central difference of the weighted KS sum (h 3e-2, 1.5e-2; bound
     1e-4); and forward mode (``staged_jvp``) against reverse mode on the
     tail of tests/test_autodiff_jvp.py:62-91 (bound 1e-5). Returns the
-    launches, the K1/K2 rows, lam and the projected KS gradient."""
+    launches, the K1/K2 rows, lam, the projected KS gradient and what
+    [thermal-dl] reuses (the protocol, the KS seeds' xb, the direction,
+    the tail and its jvp)."""
     from eigd_tpu_torch.fem.assembly import element_density
     from eigd_tpu_torch.ops.autodiff import staged_jvp
 
@@ -939,7 +1051,9 @@ def phase_thermal1m(gpu, gen, grid=THERMAL_GRID, device="cuda"):
         f"{rel:.3e} (bound 1e-5); value and gradient {t_vjp:.2f} s, "
         f"staged_jvp {t_jvp:.2f} s")
     check(rel <= 1e-5, "[thermal1m] jvp disagrees with the reverse mode")
-    return launches, rows, topo.lam.cpu().numpy(), ans
+    keep = {"opt": opt, "xb_ks": xb_ks, "pert": pert, "tail": tail,
+            "jvp": float(dv)}
+    return launches, rows, topo.lam.cpu().numpy(), ans, keep
 
 
 def thermal_block(kind, gpu, lam_mg, proj_mg, grid, device):
@@ -981,11 +1095,8 @@ def constant_mode_floor(topo):
     of K - sigma M) and the block factors (its element matrices) round it
     apart, and their constant modes differ by up to that. About 2e-13 at
     16x16; about 1e-9 at 1024x1024, with 4,096 times less mass a node."""
-    from eigd_tpu_torch.fem.assembly import element_density
-
     with torch.no_grad():
-        A, B = topo.problem.assemble(element_density(
-            topo.fltr.apply(topo.x), topo.conn))
+        A, B = topo.problem.assemble(element_density_of(topo))
         ratio = A.W.abs().sum() / B.W.sum()
     return float(torch.finfo(torch.float64).eps * ratio)
 
@@ -1006,6 +1117,197 @@ def phase_thermal_bcr(gpu, lam_mg, proj_mg, grid=THERMAL_GRID,
     gap, rel = thermal_block("bcr", gpu, lam_mg, proj_mg, grid, device)
     check(gap <= 1.0, "[thermal-bcr] lam disagrees with mg's")
     check(rel <= 1e-6, "[thermal-bcr] KS gradient disagrees with mg's")
+
+
+def thermal_forms(topo, rhoE):
+    """dAdx(W, V) and dBdx(W, V): sum_i w_i^T (dK/drhoE) v_i and the same
+    of M, by autograd of the thermal model's element bilinear forms (the
+    reference's deriv_type "tensor" contraction)."""
+    from eigd_tpu_torch.fem import assembly as fem
+
+    def form(build):
+        def dXdx(W, V):
+            with torch.enable_grad():
+                r = rhoE.detach().requires_grad_(True)
+                (g,) = torch.autograd.grad(torch.sum(W * build(r).mv(V)), r)
+            return g
+        return dXdx
+
+    return (form(lambda r: fem.thermal_stiffness_matrix(
+                r, topo.Be, topo.detJ, topo.conn, topo.nnodes,
+                kappa=topo.kappa, beta=topo.beta, p=topo.p)),
+            form(lambda r: fem.thermal_mass_matrix(
+                r, topo.He, topo.detJ, topo.conn, topo.nnodes,
+                density=topo.density, heat_capacity=topo.heat_capacity,
+                beta=topo.beta)))
+
+
+def relmax(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def thermal_dl_part(tag, device):
+    """A context for one part of [thermal-dl]: counters zeroed on entry;
+    on exit the time, host waits by loop and K1/K2 launches are printed,
+    both kernels required, and the launches kept in ``out``."""
+    import contextlib
+
+    from eigd_tpu_torch.ops import sync
+
+    out = {}
+
+    @contextlib.contextmanager
+    def part():
+        counters_zero(device)
+        sync_device(device)
+        t0 = time.perf_counter()
+        yield out
+        sync_device(device)
+        out.update(launches_now())
+        log(f"[thermal-dl {tag}] {time.perf_counter() - t0:.2f} s  K1 "
+            f"launches {out['K1']}  K2 launches {out['K2']}  host waits "
+            f"{dict(sync.HOST_SYNCS)}  loop exits {dict(sync.LOOP_EXITS)}")
+        if torch.device(device).type == "cuda":
+            check(min(out["K1"], out["K2"]) > 0,
+                  f"[thermal-dl {tag}] launched no K1 or K2")
+
+    return part, out
+
+
+def phase_thermal_dl(gpu, keep, device="cuda", ncycle=20):
+    """The rest of the solver surface on [thermal1m]'s live model
+    (1,050,625 DOF, mg factor, K1/K2 at ndof 1), each part's K1/K2
+    launches counted and required:
+
+    (a) adjoint_method "dl" on the model (same start vector): the KS
+        seeds' xb against [thermal1m]'s SIBK xb (max-abs relative, bound
+        1e-6), and the tail's reverse-mode gradient through dl against
+        [thermal1m]'s forward-mode jvp (bound 1e-5);
+    (b) BasicLanczos(N 10, m 60) on the model's A, B and factor (the kept
+        forward): lam against the model's (rtol 1e-9, atol max(1e-10, the
+        constant mode's f64 floor)); seeded with the protocol's KS seeds,
+        add_total_derivative over the element bilinear forms after dl and
+        after sibk (bound 1e-6);
+    (c) IRAM(N 10, k 20) with up to ``ncycle`` cycles at m 40, and at m
+        30 (its first expansion meets the 1e-13 exit at m 40, so m 30
+        makes the restart run): lam held as in (b); eig_res, cycles,
+        niter and the basis bytes printed beside the unrestarted m 60
+        chain's; where it reached its exit, its sibk total derivative
+        against (b)'s (bound 1e-6); dl raises.
+
+    Returns the launches of each part."""
+    import dataclasses
+
+    from eigd_tpu_torch import IRAM, BasicLanczos
+    from eigd_tpu_torch.ops import sync
+    from eigd_tpu_torch.ops.autodiff import kept_forward
+
+    opt, xb_sibk, pert, tail = (keep[k] for k in ("opt", "xb_ks", "pert",
+                                                  "tail"))
+    topo = opt.topo
+    cfg0 = topo.cfg
+    launches = {}
+
+    part, launches["a"] = thermal_dl_part("a", device)
+    with part():
+        topo.cfg = dataclasses.replace(cfg0, adjoint_method="dl")
+        opt.initialize()
+        opt.initialize_adjoint()
+        opt.add_ks_derivative(RHO_KS, KSB)
+        lamb, Qb = topo.lamb.clone(), topo.Qb.clone()
+        opt.finalize_adjoint()
+        gap = relmax(topo.xb, xb_sibk)
+        # the tail's seeds through the same solve's graph: dl's vjp
+        _, lam_g, Q_g = topo._graph
+        lam_s = lam_g.detach().requires_grad_(True)
+        Q_s = Q_g.detach().requires_grad_(True)
+        with torch.enable_grad():
+            tail(lam_s, Q_s).backward()
+        topo.initialize_adjoint()
+        topo.lamb, topo.Qb = lam_s.grad, Q_s.grad
+        topo.finalize_adjoint()
+        vjp = float(pert @ topo.xb)
+    rel = abs(vjp - keep["jvp"]) / abs(keep["jvp"])
+    log(f"[thermal-dl a] dl xb of the KS seeds vs [thermal1m]'s sibk xb: "
+        f"max-abs rel {gap:.3e} (bound 1e-6); jvp-vs-vjp(dl): vjp {vjp!r} "
+        f"jvp {keep['jvp']!r} rel {rel:.3e} (bound 1e-5) on {gpu}")
+    check(gap <= 1e-6, "[thermal-dl] dl xb disagrees with sibk's")
+    check(rel <= 1e-5, "[thermal-dl] dl vjp disagrees with the jvp")
+
+    A, B, _, factor = kept_forward(topo._graph[1])
+    lam_m = topo.lam
+    atol = max(1e-10, constant_mode_floor(topo))
+    rhoE = element_density_of(topo)
+    dAdx, dBdx = thermal_forms(topo, rhoE)
+    zero = torch.zeros_like(rhoE)
+
+    def lam_gap(lam):
+        return float(((lam - lam_m).abs() / (atol + 1e-9 * lam_m.abs()))
+                     .max())
+
+    def seeds_for(Phi):
+        sign = torch.sign(torch.sum(Phi * topo.Q, dim=0))
+        return Qb * sign[None, :]
+
+    part, launches["b"] = thermal_dl_part("b", device)
+    with part():
+        bl = BasicLanczos(N=topo.Nmax, m=60)
+        lam_b, Phi_b = bl.solve(A, B, factor, topo.sigma)
+        Phib = seeds_for(Phi_b)
+        tot = {}
+        for method in ("dl", "sibk"):
+            kw = {} if method == "dl" else {"rtol": 1e-12}
+            psi, data = bl.solve_adjoint(Phib, method=method, **kw)
+            tot[method] = bl.add_total_derivative(
+                lamb, Phib, psi, dAdx, dBdx, zero, adj_corr_data=data)
+    gb, gd = lam_gap(lam_b), relmax(tot["dl"], tot["sibk"])
+    log(f"[thermal-dl b] BasicLanczos N {topo.Nmax} m 60: lam gap "
+        f"{gb:.3e} of rtol 1e-9 / atol {atol:.3e}; eig_res max "
+        f"{float(bl.eig_res.max()):.3e}; total derivative dl vs sibk rel "
+        f"{gd:.3e} (bound 1e-6)")
+    check(gb <= 1.0, "[thermal-dl] BasicLanczos lam disagrees")
+    check(gd <= 1e-6, "[thermal-dl] BasicLanczos dl and sibk disagree")
+
+    part, launches["c"] = thermal_dl_part("c", device)
+    with part():
+        runs = []
+        for m in (40, 30):
+            exits = sync.LOOP_EXITS["restart.converged"]
+            steps = sync.LOOP_STEPS["restart"]
+            ir = IRAM(N=topo.Nmax, m=m, ncycle=ncycle)
+            lam_i, Phi_i = ir.solve(A, B, factor, topo.sigma)
+            tot_i = None
+            if sync.LOOP_EXITS["restart.converged"] > exits:
+                Phib = seeds_for(Phi_i)
+                psi, data = ir.solve_adjoint(Phib, method="sibk", rtol=1e-12)
+                tot_i = ir.add_total_derivative(lamb, Phib, psi, dAdx, dBdx,
+                                                zero, adj_corr_data=data)
+            runs.append((m, ir, lam_gap(lam_i),
+                         sync.LOOP_STEPS["restart"] - steps, tot_i))
+    n = topo.nnodes
+    for m, ir, gi, cycles, tot_i in runs:
+        log(f"[thermal-dl c] IRAM N {topo.Nmax} m {m} k {2 * topo.Nmax}: "
+            f"{cycles} cycles (cap {ncycle}), niter {ir.niter}, exit "
+            f"{'not reached' if tot_i is None else 'reached'}; eig_res "
+            f"{ir.eig_res.tolist()}; lam gap {gi:.3e} of rtol 1e-9 / atol "
+            f"{atol:.3e}; basis V+BV+W {(3 * m + 2) * n * 8 / 2**30:.3f} GiB"
+            f" vs the unrestarted m 60 chain's "
+            f"{(3 * 60 + 2) * n * 8 / 2**30:.3f} GiB")
+        check(gi <= 1.0, f"[thermal-dl] IRAM m {m} lam disagrees")
+        if tot_i is not None:
+            gs = relmax(tot_i, tot["sibk"])
+            log(f"[thermal-dl c] IRAM m {m} sibk total derivative vs (b) "
+                f"rel {gs:.3e} (bound 1e-6)")
+            check(gs <= 1e-6, f"[thermal-dl] IRAM m {m} total derivative "
+                              "disagrees")
+    try:
+        ir.solve_adjoint(Phib, method="dl")
+    except ValueError as e:
+        log(f"[thermal-dl c] IRAM dl refused: {e}")
+    else:
+        check(False, "[thermal-dl] IRAM accepted dl")
+    topo.cfg = cfg0
+    return launches
 
 
 def nf_value_and_grad(cfg, gpu, tag, device):
@@ -1571,14 +1873,19 @@ def main():
     phase("on/off", phase_on_off)
     l263, val_main, proj_main = phase("main", phase_main, topo, gpu)
     lmf = phase("minfreq", phase_minfreq, topo, gpu)
+    lme = phase("measure", phase_measure, topo, gpu)
     del topo
     gc.collect()
     torch.cuda.empty_cache()
     phase("dense", phase_dense, gpu)
+    phase("examples", phase_examples, gpu)
     l1m, s1m = phase("1m", phase_1m, gpu, gen)
     gc.collect()
     torch.cuda.empty_cache()
-    lth, sth, lam_mg, proj_mg = phase("thermal1m", phase_thermal1m, gpu, gen)
+    lth, sth, lam_mg, proj_mg, keep = phase("thermal1m", phase_thermal1m,
+                                            gpu, gen)
+    ldl = phase("thermal-dl", phase_thermal_dl, gpu, keep)
+    del keep
     # the mg model's memory is back before the block factor's peak
     gc.collect()
     torch.cuda.empty_cache()
@@ -1608,7 +1915,10 @@ def main():
                      s263["K1 513x257 ndof 2 k 16"],
                      launches_by_path={"263k": l263["K1"], "1m": l1m["K1"],
                                        "minfreq": lmf["K1"],
-                                       "thermal1m": lth["K1"]},
+                                       "thermal1m": lth["K1"],
+                                       "measure": lme["K1"],
+                                       **{f"thermal-dl {p}": v["K1"]
+                                          for p, v in ldl.items()}},
                      at_1m={k: s1m["K1 1025x513 ndof 2 k 8"][k] for k in at},
                      at_thermal1m=[{"name": r["name"], **{k: r[k] for k in at}}
                                    for n, r in sth.items()
@@ -1621,6 +1931,9 @@ def main():
                      launches_by_path={"263k": l263["K2"], "1m": l1m["K2"],
                                        "minfreq": lmf["K2"],
                                        "thermal1m": lth["K2"],
+                                       "measure": lme["K2"],
+                                       **{f"thermal-dl {p}": v["K2"]
+                                          for p, v in ldl.items()},
                                        "buckle": lbk["K2"]},
                      at_1m={k: s1m["K2 1025x513 ndof 2 k 6"][k] for k in at},
                      at_thermal1m=[{"name": r["name"], **{k: r[k] for k in at}}

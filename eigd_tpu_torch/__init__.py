@@ -21,11 +21,12 @@ from .ops.autodiff import (EigProblem, EighGenConfig, eigh_gen,
 from .ops.blockfactor import BCRFactor, BlockTridiagFactor, RefinedFactor
 from .ops.factor import (CGFactor, CholeskyFactor, EighFactor,
                          make_shift_factor)
-from .ops.lanczos import (LanczosResult, block_lanczos_solve,
+from .ops.lanczos import (BasicLanczos, LanczosResult, block_lanczos_solve,
                           lanczos_iteration, lanczos_solve)
 from .ops.multigrid import GridMGFactor
 from .ops.operators import (DenseOperator, DiagonalOperator, ElementOperator,
                             as_operator)
+from .ops.restart import IRAM, thick_restart_solve
 from .ops.stencil import GridStencilOperator
 
 __version__ = "0.1.0"
@@ -36,6 +37,8 @@ __all__ = [
     "ElementOperator",
     "as_operator",
     "GridStencilOperator",
+    "IRAM",
+    "thick_restart_solve",
     "CholeskyFactor",
     "EighFactor",
     "CGFactor",
@@ -44,6 +47,7 @@ __all__ = [
     "BlockTridiagFactor",
     "BCRFactor",
     "RefinedFactor",
+    "BasicLanczos",
     "LanczosResult",
     "lanczos_iteration",
     "lanczos_solve",

@@ -530,3 +530,25 @@ class CRM:
         Q = self.Q[:, mode].cpu().numpy()
         nd0 = self.node_dof0.cpu().numpy()
         return np.stack([Q[nd0 + d] for d in range(3)], axis=1)
+
+    def write_modes(self, prefix="crm_mode", nmodes=None, scale=0.4):
+        """Mode-shape PNGs ``<prefix><mode>.png`` (3D wireframes of the
+        displaced box, ``utils.plot.plot_shell_mode``), the role of the
+        reference's TACS .f5 output. Returns the paths written: none
+        without matplotlib."""
+        from ..utils.plot import plot_shell_mode
+
+        nmodes = self.N if nmodes is None else nmodes
+        Xn = self.X.cpu().numpy()
+        paths = []
+        for mode in range(nmodes):
+            U = self.node_displacements(mode)
+            amp = scale * np.abs(Xn).max() / max(np.abs(U).max(), 1e-30)
+            fhz = float(torch.sqrt(self.lam[mode]) / (2 * np.pi))
+            path = plot_shell_mode(Xn, self.conn, amp * U,
+                                   f"mode {mode}: {fhz:.2f} Hz",
+                                   f"{prefix}{mode}.png")
+            if path is None:
+                break
+            paths.append(path)
+        return paths

@@ -16,8 +16,7 @@ accumulated (lamb, Qb) seeds through it with ``torch.autograd.grad``.
 ``MinFreqOpt`` is the reference's KS-aggregated minimum frequency with
 point masses. The block factors (``factor_kind`` "blocktridiag", "bcr" and
 their "_f32" forms, ``block_factor_fn``) are shared with the thermal
-model. ``save_state``/``restore_state`` (ROADMAP queue 1, item 17) are not
-ported.
+model. ``save_state``/``restore_state`` checkpoint the loop's state.
 """
 
 from __future__ import annotations
@@ -308,6 +307,30 @@ class TopologyAnalysis:
         self.xb = torch.zeros_like(self.x)
         self.lamb = torch.zeros_like(self.lam)
         self.Qb = torch.zeros_like(self.Q)
+
+    # ------------------------------------------------------------------
+    # Checkpoint / warm restart
+    # ------------------------------------------------------------------
+
+    def save_state(self, path):
+        """Checkpoint the loop's state: the design x and the eigenpairs
+        (lam, Q) of the last ``initialize``. Restored in a fresh process,
+        the design comes back and Q becomes the previous iterate that the
+        next ``initialize`` aligns the eigenvector signs against."""
+        from ..utils.checkpoint import save_checkpoint
+
+        return save_checkpoint(path, {"x": self.x, "lam": self.lam,
+                                      "Q": self.Q})
+
+    def restore_state(self, path):
+        from ..utils.checkpoint import load_checkpoint
+
+        like = {"x": self.x,
+                "lam": self.x.new_zeros(self.N),
+                "Q": self.x.new_zeros((self.nvars, self.N))}
+        state = load_checkpoint(path, like)
+        self.x, self.lam, self.Q = state["x"], state["lam"], state["Q"]
+        return self
 
     def finalize_adjoint(self):
         """xb += the seeds (lamb, Qb) pulled through the graph that

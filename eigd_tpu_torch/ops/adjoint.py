@@ -1,17 +1,18 @@
 """Eigenvector-adjoint solvers and total-derivative weights.
 
-Counterpart of ``eigd_tpu/ops/adjoint.py:45-990``: the repeated-
-eigenvalue corrections, the total-derivative weight blocks, the LAA
-Galerkin guess, the SIBK shift-invert block-Krylov solver with the
-mixed-precision ladder, PCPG and projected GMRES. All N adjoint systems
+Counterpart of ``eigd_tpu/ops/adjoint.py``: the repeated-eigenvalue
+corrections, the total-derivative weight blocks, the LAA Galerkin guess,
+the SIBK shift-invert block-Krylov solver with the mixed-precision ladder,
+PCPG, projected GMRES and DL, the reverse sweep through the single-vector
+Lanczos recurrence. All N adjoint systems
 advance together as (n, N) blocks. JAX's ``while_loop``s become Python
 loops whose exits are host decisions (``sync.host_bool``); JAX's ``vmap``
 over the N shifted systems (SIBK's least squares, PGMRES's Arnoldi
 recurrences) becomes a batch dimension. Every solver takes the normal
 mode, A phi = lam B phi, and the buckling mode, the pencil
 K phi + lam G phi = 0 with (A, B) = (G, K) and K-orthonormal Phi, whose
-adjoint systems are (B + lam_i A) psi_i = -proj(Phib_i). ``dl`` is not
-ported (ROADMAP queue 1, item 12).
+adjoint systems are (B + lam_i A) psi_i = -proj(Phib_i), in every solver
+but DL (``check_dl_chain``).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import types
 import torch
 
 from .collective import pdot, qr_tall
-from .lanczos import LanczosResult
+from .lanczos import LanczosResult, _tridiagonal
 from .operators import as_operator
 from .sync import host_bool
 
@@ -673,3 +674,106 @@ def pgmres(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
     denom = torch.clamp(rnorm0, min=1e-300)
     info = {"res": res / denom, "niter": niters.sum(), "hist": hist / denom}
     return psi, data, info
+
+
+# ---------------------------------------------------------------------------
+# DL - direct linearization: reverse mode through the Lanczos recurrence
+# ---------------------------------------------------------------------------
+
+
+def check_dl_chain(res: LanczosResult, mode):
+    """Raise ValueError where DL's reverse sweep does not differentiate the
+    chain: a deflated chain (its forward projects every Krylov vector, the
+    sweep does not) and the buckling mode (its reverse recurrence grows
+    with the chain length). JAX's ``dl`` returns gradients off by up to
+    1e49 there (ROADMAP, faults of the reference)."""
+    if res.deflated:
+        raise ValueError(
+            "adjoint method 'dl' cannot differentiate a deflated Lanczos "
+            "chain (rigid modes projected out); use sibk, pcpg or pgmres")
+    if mode == "buckling":
+        raise ValueError(
+            "adjoint method 'dl' is wrong in buckling mode (its reverse "
+            "sweep grows with the chain); use sibk, pcpg or pgmres")
+    if mode != "normal":
+        raise ValueError(f"Unknown mode {mode!r}")
+
+
+def dl(Phib, B, factor, res: LanczosResult, mode="normal", eig_atol=1e-5):
+    """Exact reverse mode through the three-term shift-invert Lanczos
+    recurrence of the single-vector chain (``lanczos_solve``), the
+    counterpart of ``eigd_tpu/ops/adjoint.py:991-1108``.
+
+    The reverse sweep rebuilds the forward intermediates from the stored
+    basis V and the tridiagonal T over the whole allocated chain
+    (``res.m`` steps), one factor apply and three B applies a step. The
+    seed Rmod = Phib + B Phi G is taken unconditionally; the distinct-pair
+    fold of ``generate_adjoint_correction`` restores its in-span part. A
+    step whose beta froze to 0 (breakdown) contributes nothing, through a
+    guarded division. The masked rank-1 updates are in-place row updates
+    of preallocated (m, n) arrays. A chain run far past convergence
+    (trailing betas ~ 0) amplifies rounding, as JAX's docstring says.
+    Deflated chains and the buckling mode raise (``check_dl_chain``).
+
+    Returns (psi, EigCorrection).
+    """
+    check_dl_chain(res, mode)
+    B = as_operator(B)
+    m = res.m
+    N = Phib.shape[1]
+    V = res.V[:m]  # (m, n) basis rows
+    T = _tridiagonal(res.alpha, res.beta)
+    Ys = res.Ys
+    theta_s = res.theta_s
+    lam = res.lam[:N]
+    Phi = res.Phi
+    device = Phi.device
+
+    BPhi = B.mv(Phi)
+    G = -(Phi.T @ Phib)
+    Rmod = Phib + BPhi @ G
+    Ysel = Ys[:, :N]
+    Vb = Ysel @ Rmod.T  # (m, n) cotangent rows of V
+    Yb = V @ Rmod  # (m, N)
+
+    # divided differences in sorted coordinates, skipping the diagonal and
+    # repeated selected pairs
+    rows = torch.arange(m, device=device)[:, None]
+    cols = torch.arange(N, device=device)[None, :]
+    denom = theta_s[None, :N] - theta_s[:, None]
+    lam_pad = res.lam_all[res.order]
+    close_sel = (torch.abs(lam_pad[:, None] - lam[None, :]) < eig_atol) & (
+        rows < N)
+    mask = (rows != cols) & ~close_sel & (denom != 0.0)
+    C = Ys.T @ Yb
+    Ds = torch.where(mask, C / torch.where(mask, denom, 1.0), 0.0)
+    Tb = Ys @ (Ds @ Ysel.T)  # (m, m)
+
+    # reverse sweep
+    Vb.addr_(Tb[:, m - 1], B.mv(factor.mv(B.mv(V[m - 1]))))
+    u = factor.mv(B.mv(Tb[:, m - 1] @ V))
+    Vb[m - 1] += B.mv(u)
+    U = torch.zeros_like(Vb)
+    for i in range(m - 2, -1, -1):
+        lo = max(i - 1, 0)
+        # B V T[:, i]: T is tridiagonal, so rows i-1..i+1 of V
+        t = B.mv(T[lo:i + 2, i] @ V[lo:i + 2])
+        vb = Vb[i + 1]
+        beta = T[i + 1, i]
+        c0 = V[i + 1] @ vb - beta * Tb[i + 1, i]
+        ok = torch.abs(beta) > 1e-30
+        sb = (vb - c0 * B.mv(V[i + 1])) * torch.where(
+            ok, 1.0 / torch.where(ok, beta, 1.0), 0.0)
+        Vb[lo:i + 1].addr_(T[lo:i + 1, i], sb, alpha=-1.0)
+        hb = V[:i + 1] @ sb - Tb[:i + 1, i]
+        Vb[:i + 1].addr_(hb, t, alpha=-1.0)
+        sb = sb - B.mv(hb @ V[:i + 1])
+        U[i + 1] = u
+        u = factor.mv(sb)
+        Vb[i] += B.mv(u)
+    U[0] = u
+
+    psi = -(U.T @ (Ysel / (lam - res.sigma)[None, :]))
+    psi = psi - Phi @ (BPhi.T @ psi)
+    return generate_adjoint_correction(lam, Phi, psi, G=G, eig_atol=eig_atol,
+                                       mode=mode)

@@ -10,7 +10,8 @@ attaches the kernels' plane stencils at the solver boundary, builds the
 shift-invert factor (``problem.factor``, or the dense one of
 ``make_shift_factor``) and runs the Lanczos eigensolve (block, or single
 vector for ``block <= 1``), all without autograd. The backward pass runs
-the adjoint solve (an LAA guess, then SIBK, PCPG or PGMRES) with the
+the adjoint solve (an LAA guess, then SIBK, PCPG or PGMRES; or DL, the
+reverse sweep through the single-vector chain) with the
 repeated-eigenvalue correction and chains the matrix cotangents into
 theta by ``torch.autograd.grad`` of the bilinear forms
 sum_i w_i^T A(theta) phi_i -/+ sum_i v_i^T B(theta) phi_i (minus in the
@@ -77,6 +78,8 @@ class EighGenConfig:
     polish: int = 0  # Ritz-block subspace-iteration polish steps
     polish_spare: int = 0  # extra Ritz vectors carried through the polish
     lanczos_sweep: str = "exact"  # "approx": inexact f32 sweep + polish
+    measure_eig_res: bool = False  # block solver at polish 0: measure the
+    # true pencil residual into LanczosResult.eig_res_measured
     kernel_mv: str = "auto"
 
 
@@ -144,7 +147,8 @@ def _forward_ops(theta, problem, A, B, cfg):
                               check_every=cfg.lanczos_check_every,
                               polish=cfg.polish,
                               polish_spare=cfg.polish_spare,
-                              sweep=cfg.lanczos_sweep)
+                              sweep=cfg.lanczos_sweep,
+                              measure_res=cfg.measure_eig_res)
     return A, B, res, factor
 
 
@@ -195,15 +199,23 @@ def solve_eig_adjoint(A, B, res, factor, lam_bar, Phi_bar, cfg,
     """Reverse-pass core: adjoint solve + correction + weight blocks.
 
     ``deflate``: the (U, BU) rows deflated out of the forward solve; pcpg
-    resolves those components explicitly. Returns (W_A, W_B, Phi) such
-    that the matrix cotangents are A_bar = W_A Phi^T and
-    B_bar = -W_B Phi^T (normal mode), +W_B Phi^T (buckling mode).
+    resolves those components explicitly. ``dl`` runs the reverse sweep
+    through the single-vector chain: it raises on a block solve (no
+    three-term chain), a deflated chain and the buckling mode. Returns
+    (W_A, W_B, Phi) such that the matrix cotangents are A_bar = W_A Phi^T
+    and B_bar = -W_B Phi^T (normal mode), +W_B Phi^T (buckling mode).
     """
     if cfg.adjoint_method == "dl":
-        raise NotImplementedError(
-            "adjoint_method='dl' is not ported (ROADMAP queue 1, item 12)")
-    psi, data = _projected_solve(Phi_bar, A, B, res, factor, cfg,
-                                 cfg.adjoint_method, deflate=deflate)
+        if cfg.block > 1:
+            raise ValueError(
+                "adjoint_method='dl' requires the single-vector Lanczos "
+                "solver (block=1); the block solver has no three-term chain")
+        adj.check_dl_chain(res, cfg.mode)
+        psi, data = adj.dl(Phi_bar, B, factor, res, mode=cfg.mode,
+                           eig_atol=cfg.eig_atol)
+    else:
+        psi, data = _projected_solve(Phi_bar, A, B, res, factor, cfg,
+                                     cfg.adjoint_method, deflate=deflate)
     W_A, W_B = adj.total_derivative_weights(
         res.lam, res.Phi, lam_bar, Phi_bar, psi, adj_corr_data=data,
         mode=cfg.mode)

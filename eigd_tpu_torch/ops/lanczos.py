@@ -6,14 +6,16 @@ Counterpart of ``eigd_tpu/ops/lanczos.py``: the single-vector solver
 reduced symmetric eigenproblems use ``torch.linalg.eigh`` in f64, which
 takes the place of JAX's ``eigh_accurate`` (a Jacobi polish that exists
 because XLA:TPU's eigh floors near 1e-7). The basis arrays are
-preallocated and updated in place. The host ``BasicLanczos`` wrapper is
-not ported (ROADMAP queue 1, item 12).
+preallocated and updated in place. ``BasicLanczos`` is the host wrapper
+with the reference's class surface: the Ntarget mode count, the
+convergence warnings and the adjoint dispatch.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import types
+import warnings
 
 import torch
 
@@ -23,11 +25,12 @@ from .sync import host_bool, loop_exit
 
 
 def map_ritz_values(theta, sigma, mode):
-    """Undo the shift-invert spectral map, and the order of the wanted
-    modes first:
+    """Undo the spectral map, and the order of the wanted modes first:
 
-        normal:   lam = 1/theta + sigma,        by lam
-        buckling: lam = sigma theta/(theta-1),  by -1/lam
+        normal:   lam = 1/theta + sigma,              by lam
+        buckling: lam = sigma theta/(theta-1),        by -1/lam
+        cayley:   lam = sigma (theta+1)/(theta-1),    by lam
+                  (theta = 1 maps to +inf)
     """
     if mode == "normal":
         lam = 1.0 / theta + sigma
@@ -35,6 +38,11 @@ def map_ritz_values(theta, sigma, mode):
     if mode == "buckling":
         lam = sigma * theta / (theta - 1.0)
         return lam, torch.argsort(-1.0 / lam, stable=True)
+    if mode == "cayley":
+        denom = theta - 1.0
+        lam = torch.where(denom == 0.0, torch.inf, sigma * (theta + 1.0)
+                          / torch.where(denom == 0.0, 1.0, denom))
+        return lam, torch.argsort(lam, stable=True)
     raise ValueError(f"Unknown mode {mode!r}")
 
 
@@ -84,6 +92,7 @@ class LanczosResult:
     sigma: torch.Tensor  # scalar shift
     niter: int  # Krylov vectors actually built
     eig_res_measured: torch.Tensor = None  # (N,) measured pencil residual
+    deflated: bool = False  # the chain was kept B-orthogonal to known rows
 
     @property
     def m(self):
@@ -318,9 +327,10 @@ def _block_lanczos_setup(A, B, factor, sigma, N, m, p, mode="normal",
 
 def _block_lanczos_extract(A, B, factor, sigma, N, mode, s, niter, p,
                            guard_tiny0, ortho, polish, polish_spare,
-                           deflate):
+                           deflate, measure=False):
     """Rayleigh-Ritz extraction tail of the block Lanczos solve (symmetric
-    completion, Gram Rayleigh-Ritz, selection, residual bound, polish)."""
+    completion, Gram Rayleigh-Ritz, selection, residual bound, polish or,
+    with ``measure``, the measured pencil residual)."""
     V = s.V
     mtot = s.Hraw.shape[1]
     dtype = V.dtype
@@ -396,19 +406,31 @@ def _block_lanczos_extract(A, B, factor, sigma, N, mode, s, niter, p,
                 A, B, factor, lam, Phi, sigma, mode, deflate=deflate,
                 nsteps=polish)
         eig_res_measured = eig_res
+    elif measure:
+        # the true pencil residual ||A phi - mu B phi|| of the returned
+        # pairs (mu = -1/lam in buckling mode): under ortho="local" and the
+        # approx sweep the coupling bound can understate it by orders
+        if mode == "buckling":
+            zero = lam == 0.0
+            mu = torch.where(zero, 0.0, -1.0 / torch.where(zero, 1.0, lam))
+        else:
+            mu = lam
+        R = A.mv(Phi) - B.mv(Phi) * mu[None, :]
+        eig_res_measured = torch.sqrt(torch.sum(R * R, dim=0))
 
     zeros_m = torch.zeros(mtot, dtype=dtype, device=device)
     return LanczosResult(
         lam=lam, Phi=Phi, V=V, BV=s.BV, alpha=zeros_m, beta=zeros_m, H=H,
         theta=theta, Y=Y, order=order, lam_all=lam_all, eig_res=eig_res,
         sigma=torch.tensor(sigma, dtype=dtype, device=device), niter=niter,
-        eig_res_measured=eig_res_measured)
+        eig_res_measured=eig_res_measured, deflated=deflate is not None)
 
 
 def block_lanczos_solve(A, B, factor, sigma, N, m, p, mode="normal",
                         seed=12345, v0=None, deflate=None, tol=None,
                         check_every=1, ortho="full", polish=0,
-                        polish_spare=0, sweep="exact") -> LanczosResult:
+                        polish_spare=0, sweep="exact",
+                        measure_res=False) -> LanczosResult:
     """Block shift-invert Lanczos: p Krylov vectors advance per factor
     apply. ``ortho="local"`` orthogonalizes each new block against the
     previous two only and extracts with a generalized Rayleigh-Ritz on the
@@ -419,8 +441,11 @@ def block_lanczos_solve(A, B, factor, sigma, N, m, p, mode="normal",
     decision per check; ``sync.LOOP_EXITS`` counts which way it ended).
     The exit picks the wanted pairs as the largest theta, which holds for
     the normal map only: outside the normal mode the sweep runs all
-    blocks, as in JAX.
+    blocks, as in JAX. ``measure_res`` (without polish) measures the true
+    pencil residual of the returned pairs into ``eig_res_measured``, two
+    thin operator applies that change nothing else.
     """
+    A, B = as_operator(A), as_operator(B)
     st = _block_lanczos_setup(A, B, factor, sigma, N, m, p, mode=mode,
                               seed=seed, v0=v0, deflate=deflate,
                               ortho=ortho, sweep=sweep)
@@ -458,7 +483,7 @@ def block_lanczos_solve(A, B, factor, sigma, N, m, p, mode="normal",
         niter = t * p
     return _block_lanczos_extract(
         A, B, factor, sigma, N, mode, s, niter, p, tol is not None, ortho,
-        polish, polish_spare, deflate)
+        polish, polish_spare, deflate, measure=measure_res)
 
 
 # ---------------------------------------------------------------------------
@@ -467,9 +492,12 @@ def block_lanczos_solve(A, B, factor, sigma, N, m, p, mode="normal",
 
 
 def lanczos_iteration(factor_mv, B_mv, v0, m, deflate=None, tol=None,
-                      nwanted=None, check_every=8, min_iter=None):
+                      nwanted=None, check_every=8, min_iter=None,
+                      apply_op=None):
     """Up to m shift-invert Lanczos steps on ``factor(B v)`` with full
     B-orthogonalization (CGS2 against the cached B V rows).
+    ``apply_op(v, Bv)``, if given, is the iterated operator instead (the
+    Cayley map's ``factor(A v + sigma B v)``).
 
     v0 : (n,) start vector (normalized here). deflate : optional (U, BU)
     rows kept out of the Krylov space. With ``tol`` set, every
@@ -502,7 +530,7 @@ def lanczos_iteration(factor_mv, B_mv, v0, m, deflate=None, tol=None,
     col = torch.arange(m + 1, device=device)
 
     def step(i):
-        w = factor_mv(BV[i])
+        w = factor_mv(BV[i]) if apply_op is None else apply_op(V[i], BV[i])
         W_raw[i] = w
         mask = (col <= i).to(dtype)
         w = defl(w)
@@ -571,6 +599,8 @@ def lanczos_solve(A, B, factor, sigma, N, m, mode="normal", seed=12345,
     sort last. ``polish`` runs ``polish_ritz_block`` on the selection.
     Outside the normal mode ``tol`` is ignored and all m steps run (the
     exit's largest-theta selection is the normal map's), as in JAX.
+    ``mode="cayley"`` iterates the Cayley operator (A - sigma B)^-1
+    (A + sigma B) (ARPACK's mode 5): ``factor`` is the normal-mode one.
     With v0=None the start vector is drawn from a ``torch.Generator``
     seeded with ``seed`` (JAX draws from ``jax.random``: parity runs pass
     v0).
@@ -583,9 +613,13 @@ def lanczos_solve(A, B, factor, sigma, N, m, mode="normal", seed=12345,
     device = A.device
     if v0 is None:
         v0 = _uniform_block(A.shape[0], 1, seed, dtype, device)[:, 0]
+    apply_op = None
+    if mode == "cayley":
+        def apply_op(v, bv):
+            return factor.mv(A.mv(v) + sigma * bv)
     V, BV, alpha, beta, W_raw, niter = lanczos_iteration(
         factor.mv, B.mv, v0, m, deflate=deflate, tol=tol, nwanted=N,
-        check_every=check_every)
+        check_every=check_every, apply_op=apply_op)
     Hf = BV[:m] @ W_raw.T
     H = 0.5 * (Hf + Hf.T)
     theta, Y = torch.linalg.eigh(H)
@@ -611,4 +645,152 @@ def lanczos_solve(A, B, factor, sigma, N, m, mode="normal", seed=12345,
     return LanczosResult(
         lam=lam, Phi=Phi, V=V, BV=BV, alpha=alpha, beta=beta, H=H,
         theta=theta, Y=Y, order=order, lam_all=lam_all, eig_res=eig_res,
-        sigma=torch.tensor(sigma, dtype=dtype, device=device), niter=niter)
+        sigma=torch.tensor(sigma, dtype=dtype, device=device), niter=niter,
+        deflated=deflate is not None)
+
+
+# ---------------------------------------------------------------------------
+# Host wrapper with the reference's class surface
+# ---------------------------------------------------------------------------
+
+
+class BasicLanczos:
+    """The reference's ``BasicLanczos`` surface over ``lanczos_solve``:
+    ``solve`` / ``solve_adjoint`` / ``eval_adjoint_residual_norm`` /
+    ``add_total_derivative`` (``eigd_tpu/ops/lanczos.py:1069-1251``).
+
+    It keeps the result as host state, picks the mode count with
+    ``Ntarget`` (N grows until lam[N-1] and lam[N] are distinct, Phi
+    widened from the stored basis), warns on a repeated boundary and on
+    non-convergence (``fail``), and dispatches the adjoint methods.
+    ``adaptive`` lets the iteration exit at ``tol`` (normal mode; one
+    counted host decision a check, ``sync.HOST_SYNCS["lanczos1_exit"]``).
+    ``ortho_type`` is accepted for the reference's signature; both values
+    run the full CGS2 iteration, as in JAX. The start vector comes from a
+    ``torch.Generator`` seeded with ``seed``, or is ``v0`` (JAX draws
+    another from ``jax.random``: parity runs pass JAX's).
+    """
+
+    def __init__(self, N=10, m=60, tol=1e-14, Ntarget=None, eig_atol=1e-5,
+                 mode="normal", seed=12345, ortho_type="full",
+                 adaptive=False, v0=None):
+        if mode not in ("normal", "buckling", "cayley"):
+            raise ValueError(f"Unknown mode {mode!r}")
+        if Ntarget is not None and not isinstance(Ntarget, int):
+            raise ValueError("Ntarget must be an integer or None")
+        if ortho_type not in ("full", "selective"):
+            raise ValueError(f"Unknown ortho_type {ortho_type!r}")
+        self.ortho_type = ortho_type
+        self.N = N
+        self.m = m
+        self.tol = tol
+        self.Ntarget = Ntarget
+        self.eig_atol = eig_atol
+        self.mode = mode
+        self.seed = seed
+        self.adaptive = adaptive
+        self.v0 = v0
+        self.res = None
+
+    def solve(self, A, B, factor, sigma):
+        """The N wanted eigenpairs of A phi = lam B phi (buckling: the
+        load factors of the (G, K) pencil) by shift-invert Lanczos with
+        ``factor``. Returns (lam, Phi)."""
+        self.A, self.B = as_operator(A), as_operator(B)
+        # the Krylov space cannot exceed the problem dimension
+        self.m = min(self.m, int(self.A.shape[0]))
+        self.factor, self.sigma = factor, sigma
+
+        N = self.Ntarget if self.Ntarget is not None else self.N
+        # vectors for the N wanted pairs, with slack for Ntarget growth
+        nvec = min(self.m, N + 3) if self.Ntarget is not None else N
+        res = lanczos_solve(self.A, self.B, factor, sigma, nvec, self.m,
+                            mode=self.mode, seed=self.seed, v0=self.v0,
+                            tol=self.tol if self.adaptive else None)
+        lam_sorted = res.lam_all[res.order].tolist()
+        if self.Ntarget is not None:
+            while N < self.m - 1 and abs(
+                    lam_sorted[N - 1] - lam_sorted[N]) < self.eig_atol:
+                N += 1
+            self.N = N
+        elif N < self.m and abs(
+                lam_sorted[N - 1] - lam_sorted[N]) < self.eig_atol:
+            warnings.warn(f"BasicLanczos: Ritz values {N} and {N + 1} are "
+                          "numerically repeated.")
+
+        if N > nvec:
+            # Ntarget grew past the solved vectors: widen from the basis
+            sel = res.order[:N]
+            Y0 = res.Y[:, sel]
+            last = min(max(res.niter - 1, 0), res.m - 1)
+            lam, Phi = res.lam_all[sel], res.V[:res.m].T @ Y0
+            eig_res = torch.abs(res.beta[last] * Y0[last, :])
+        else:
+            lam, Phi, eig_res = res.lam[:N], res.Phi[:, :N], res.eig_res[:N]
+        self.res = dataclasses.replace(res, lam=lam, Phi=Phi, eig_res=eig_res)
+        self.lam0, self.Phi = lam, Phi
+        self.eig_res = eig_res.cpu().numpy()
+        self.niter = res.niter
+        self.fail = bool((self.eig_res > self.tol).any())
+        if self.fail:
+            warnings.warn(
+                f"BasicLanczos: eigensolve did not converge to tol="
+                f"{self.tol:g} (max residual {self.eig_res.max():g} after "
+                f"{self.niter} iterations).")
+        return self.lam0, self.Phi
+
+    def solve_adjoint(self, Phib, method="sibk", psi=None, rtol=1e-10,
+                      atol=1e-30, lanczos_guess=True, **kwargs):
+        """psi and its EigCorrection for the adjoint seeds Phib by
+        ``method``: "pcpg", "pgmres", "sibk" (each from an LAA guess when
+        ``lanczos_guess``), "laa" or "dl". The Cayley map has no adjoint.
+        ``kwargs`` go to the iterative solver; its info is kept as
+        ``adjoint_info``."""
+        from . import adjoint as adj
+
+        if method not in ("pcpg", "pgmres", "sibk", "laa", "dl"):
+            raise ValueError(f"Unknown method {method!r}")
+        if self.mode == "cayley":
+            raise ValueError(
+                "cayley is a forward spectral map only; the adjoint solvers "
+                "take the normal and buckling modes")
+        res = self.res
+        Phib = torch.as_tensor(Phib, dtype=res.Phi.dtype,
+                               device=res.Phi.device)
+        if method == "dl":
+            return adj.dl(Phib, self.B, self.factor, res, mode=self.mode,
+                          eig_atol=self.eig_atol)
+        if lanczos_guess or method == "laa":
+            psi = adj.laa(Phib, self.B, self.factor, res, b_ortho=True,
+                          mode=self.mode)
+        elif psi is None:
+            psi = torch.zeros_like(Phib)
+        if method == "laa":
+            return adj.generate_adjoint_correction(
+                res.lam, res.Phi, psi, Phib=Phib, eig_atol=self.eig_atol,
+                mode=self.mode)
+        solver = {"sibk": adj.sibk, "pcpg": adj.pcpg,
+                  "pgmres": adj.pgmres}[method]
+        if method == "sibk":
+            kwargs.setdefault("sigma", self.sigma)
+        psi, data, self.adjoint_info = solver(
+            Phib, self.A, self.B, res.lam, res.Phi, mode=self.mode, psi=psi,
+            factor=self.factor, rtol=rtol, atol=atol,
+            eig_atol=self.eig_atol, **kwargs)
+        return psi, data
+
+    def eval_adjoint_residual_norm(self, Phib, psi, b_ortho=False):
+        from . import adjoint as adj
+
+        return adj.eval_adjoint_residual_norm(
+            self.A, self.B, self.res.lam, self.res.Phi, Phib, psi,
+            mode=self.mode, b_ortho=b_ortho)
+
+    def add_total_derivative(self, lamb, Phib, psi, dAdx, dBdx, dfdx,
+                             adj_corr_data=None, deriv_type="tensor"):
+        from . import adjoint as adj
+
+        return adj.add_eig_total_derivative(
+            self.res.lam, self.res.Phi, lamb, Phib, psi, dAdx, dBdx, dfdx,
+            adj_corr_data=adj_corr_data, mode=self.mode,
+            deriv_type=deriv_type)

@@ -6,6 +6,9 @@ numpy arrays. The mixed-ladder SIBK must solve the adjoint equations to a
 residual of 1e-9 relative, as tests/test_adjoint.py requires of eigd_tpu.
 """
 
+import dataclasses
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -172,3 +175,136 @@ def test_lstsq_and_true_resnorm_match(solved):
     got = tadj.sibk_true_resnorm(t(Phib), At, Bt, rt.lam, rt.Phi,
                                  t(psi)).numpy()
     assert np.abs(got - ref).max() <= 1e-12 * np.abs(ref).max()
+
+
+# ---------------------------------------------------------------------------
+# DL: the reverse sweep through the single-vector chain
+# ---------------------------------------------------------------------------
+
+
+def _make_pencil(n, seed):
+    """The pencil of tests/test_adjoint.py: eigenvalues 1..10^1.5 then
+    100-300, congruent to a B near the identity."""
+    rng = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    w = np.concatenate([np.arange(1.0, 11.0) ** 1.5,
+                        np.linspace(100.0, 300.0, n - 10)])
+    Bm = rng.standard_normal((n, n)) * 0.05
+    Bm = Bm @ Bm.T + np.eye(n)
+    L = np.linalg.cholesky(Bm)
+    A = L @ (Q @ np.diag(w) @ Q.T) @ L.T
+    return 0.5 * (A + A.T), Bm
+
+
+def test_dl_gradient_matches_jax_on_the_pencil():
+    """eigh_gen with adjoint_method="dl" on the pencil of
+    tests/test_adjoint.py (n 80, N 4, m 40, where the wanted modes just
+    converge), x entering A0 + diag x and B0 + 0.02 diag x, both packages
+    from one start vector: the gradient of sum(log lam) + sum(Phi[:7]^2)
+    against jax.grad through JAX's dl at 1e-10 of max|g|."""
+    from eigd_tpu.ops.autodiff import EigProblem as JProblem
+    from eigd_tpu.ops.autodiff import EighGenConfig as JConfig
+    from eigd_tpu.ops.autodiff import eigh_gen as j_eigh_gen
+    from eigd_tpu.ops.operators import DenseOperator as JDense
+    from eigd_tpu_torch.ops.autodiff import EigProblem, EighGenConfig, eigh_gen
+    from eigd_tpu_torch.ops.operators import DenseOperator
+
+    n = 80
+    A0, B0 = _make_pencil(n, 3)
+    v0 = np.random.default_rng(4).uniform(-1.0, 1.0, n)
+    x0 = 0.05 * np.random.default_rng(4).standard_normal(n)
+    kw = dict(N=4, m=40, sigma=0.0, adjoint_method="dl")
+
+    jp = JProblem(assemble=lambda x: (JDense(jnp.asarray(A0) + jnp.diag(x)),
+                                      JDense(jnp.asarray(B0)
+                                             + 0.02 * jnp.diag(x))),
+                  v0=lambda x: jnp.asarray(v0))
+
+    def fj(x):
+        lam, Phi = j_eigh_gen(x, jp, JConfig(**kw))
+        return jnp.sum(jnp.log(lam)) + jnp.sum(Phi[:7] ** 2)
+
+    g_j = np.asarray(jax.grad(fj)(jnp.asarray(x0)))
+
+    At, Bt = torch.as_tensor(A0), torch.as_tensor(B0)
+    tp = EigProblem(assemble=lambda x: (DenseOperator(At + torch.diag(x)),
+                                        DenseOperator(Bt
+                                                      + 0.02 * torch.diag(x))),
+                    v0=lambda x: torch.as_tensor(v0))
+    x = torch.as_tensor(x0).requires_grad_(True)
+    lam, Phi = eigh_gen(x, tp, EighGenConfig(**kw))
+    (torch.sum(torch.log(lam)) + torch.sum(Phi[:7] ** 2)).backward()
+    assert np.abs(x.grad.numpy() - g_j).max() <= 1e-10 * np.abs(g_j).max()
+
+
+def test_dl_gradient_matches_jax_on_the_thermal_model():
+    """The thermal 24x24 dense model (N 4: Nmax 8, m 60, single vector,
+    no deflation, the chain where JAX's dl is right), both packages from
+    one start vector: the gradient of sum(lam) + sum(Q[:20]^2) through dl
+    against jax.grad through JAX's at 1e-10 of max|g|, and the port's dl
+    against its own SIBK at 1e-8."""
+    from eigd_tpu.models import thermal as jth
+    from eigd_tpu_torch.interop import thermal_from_numpy
+
+    jt = jth.make_model(24, 24, N=4, adjoint_method="dl")
+    f = jt.fltr
+    tt = thermal_from_numpy(
+        np.asarray(jt.x), np.asarray(jt.X), np.asarray(jt.conn),
+        jt.element_sets, (np.asarray(f.idx), np.asarray(f.wts)),
+        jt.grid_shape, f.r0,
+        device="cpu", N=4, adjoint_method="dl")
+    v0 = np.random.default_rng(3).uniform(-1.0, 1.0, jt.nnodes)
+    jt.problem = dataclasses.replace(jt.problem,
+                                     v0=lambda th: jnp.asarray(v0))
+    tt.problem = dataclasses.replace(tt.problem,
+                                     v0=lambda th: torch.as_tensor(v0))
+
+    def fj(x):
+        lam, Q = jt._solve_fn(x)[:2]
+        return jnp.sum(lam) + jnp.sum(Q[:20] ** 2)
+
+    g_j = np.asarray(jax.grad(fj)(jt.x))
+    grads = {}
+    for method in ("dl", "sibk"):
+        tt.cfg = dataclasses.replace(tt.cfg, adjoint_method=method)
+        x = tt.x.clone().requires_grad_(True)
+        lam, Q = tt._solve_fn(x)
+        (torch.sum(lam) + torch.sum(Q[:20] ** 2)).backward()
+        grads[method] = x.grad.numpy()
+    scale = np.abs(g_j).max()
+    assert np.abs(grads["dl"] - g_j).max() <= 1e-10 * scale
+    assert np.abs(grads["dl"] - grads["sibk"]).max() <= 1e-8 * scale
+
+
+def _first_blf_sigma():
+    from eigd_tpu_torch.models.buckling import first_blf, make_buckling_model
+
+    return 0.8 * first_blf(make_buckling_model(nx=16, ny=8, N=4, sigma=1.0,
+                                               device="cpu"))
+
+
+@pytest.mark.parametrize("chain", ["deflated", "buckling", "block"])
+def test_dl_refuses_what_the_reference_gets_wrong(chain):
+    """adjoint_method="dl" raises ValueError naming the restriction on the
+    deflated natural-frequency chain (16x8, N 3, m 40, single vector) and
+    on the buckling chain (16x8, N 4, sigma 0.8 BLF_1), where JAX's dl
+    returns gradients off by 2.8e7 and 5.6e49 (ROADMAP, faults of the
+    reference), and, as JAX does, on a block solve."""
+    from eigd_tpu_torch.models.buckling import make_buckling_model
+    from eigd_tpu_torch.models.natural_frequency import make_model
+
+    if chain == "buckling":
+        topo = make_buckling_model(nx=16, ny=8, N=4, sigma=_first_blf_sigma(),
+                                   adjoint_method="dl", device="cpu")
+        match = "buckling"
+    else:
+        block = 1 if chain == "deflated" else 4
+        topo = make_model(nx=16, ny=8, Lx=2.0, rfact=2.0, N=3,
+                          m=40 if block == 1 else 48,
+                          lanczos_block=block,
+                          adjoint_method="dl", device="cpu")
+        match = "deflated" if chain == "deflated" else "single-vector"
+    x = topo.x.clone().requires_grad_(True)
+    lam, Q = topo._solve_fn(x)[:2]
+    with pytest.raises(ValueError, match=match):
+        (torch.sum(lam) + torch.sum(Q[:20] ** 2)).backward()

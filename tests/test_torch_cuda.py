@@ -261,3 +261,42 @@ def test_crm_protocol_matches_autograd_on_card():
     (g,) = torch.autograd.grad((lam, Qr), x, (crm.lamb, crm.Qrb))
     gap = float((g - crm.xb).abs().max() / crm.xb.abs().max())
     assert gap <= 1e-12, gap
+
+
+def solver_surface(dev):
+    """dl, thick_restart_solve and BasicLanczos(mode="cayley") on the
+    64x64 thermal model on the mg factor (kernels "on": K1/K2 on the
+    card, their twins on the CPU): the dl gradient of sum(lam) +
+    sum(Q[:20]^2), the restarted solve's lam (m 30, k 12, three cycles
+    run: two restarts) and the Cayley map's lam (sigma -0.1, N 3,
+    m 60)."""
+    from eigd_tpu_torch import BasicLanczos, thick_restart_solve
+    from eigd_tpu_torch.models.thermal import make_model as thermal_model
+    from eigd_tpu_torch.ops.autodiff import _kernel_ops
+
+    topo = thermal_model(nx=64, ny=64, Ly=1.15, N=6, factor_kind="mg",
+                         adjoint_method="dl", kernel_mv="on",
+                         factor_options={"vcycle": "kernel"}, device=dev)
+    x = topo.x.clone().requires_grad_(True)
+    lam, Q = topo._solve_fn(x)
+    (torch.sum(lam) + torch.sum(Q[:20] ** 2)).backward()
+    with torch.no_grad():
+        A, B = _kernel_ops(*topo.problem.assemble(element_density(
+            topo.fltr.apply(topo.x), topo.conn)), topo.cfg)
+        factor = topo.problem.factor(A, B, topo.sigma, "normal")
+        rlam = thick_restart_solve(A, B, factor, topo.sigma, 6, 30, k=12,
+                                   ncycle=3).lam
+        clam, _ = BasicLanczos(N=3, m=60, mode="cayley").solve(
+            A, B, factor, topo.sigma)
+    return [t.detach().cpu().numpy() for t in (x.grad, rlam, clam)]
+
+
+def test_solver_surface_on_card_matches_cpu():
+    """The dl gradient at 1e-8 of its largest entry, the restarted and
+    the Cayley eigenvalues at rtol 1e-9 (atol 1e-10 for the constant
+    mode), on the card against the CPU."""
+    require_cuda()
+    cpu, gpu = solver_surface("cpu"), solver_surface("cuda")
+    assert np.abs(gpu[0] - cpu[0]).max() <= 1e-8 * np.abs(cpu[0]).max()
+    for g, c in zip(gpu[1:], cpu[1:]):
+        np.testing.assert_allclose(g, c, rtol=1e-9, atol=1e-10)

@@ -106,7 +106,13 @@ def test_port_imports_no_jax():
             "eigd_tpu_torch.diag.f32_shift, "
             "eigd_tpu_torch.diag.stencil_host, eigd_tpu_torch.models.crm, "
             "eigd_tpu_torch.fem.shell, eigd_tpu_torch.fem.bdf, "
-            "eigd_tpu_torch.diag.crm, chip_smoke; "
+            "eigd_tpu_torch.diag.crm, eigd_tpu_torch.ops.restart, "
+            "eigd_tpu_torch.utils.checkpoint, eigd_tpu_torch.utils.profile, "
+            "eigd_tpu_torch.utils.plot, "
+            "eigd_tpu_torch.examples.natural_frequency, "
+            "eigd_tpu_torch.examples.thermal, "
+            "eigd_tpu_torch.examples.buckling, "
+            "eigd_tpu_torch.examples.crm, chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'eigd_tpu.')) or m == 'eigd_tpu']; "
             "assert not bad, bad")
