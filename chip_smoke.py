@@ -65,6 +65,18 @@ on [thermal1m]'s live 1M model (``[thermal-dl]``) the ``dl`` adjoint
 against SIBK and the forward mode, ``BasicLanczos`` with its dl and sibk
 adjoints, and ``IRAM`` (thick restart at m 40), K1/K2 counted in each.
 
+The sharded solve (``eigd_tpu_torch/parallel``) closes the run:
+``[sharded1]`` at world 1 on NCCL drives the NF sharded objective at
+512x256 on the line-sharded multigrid factor (K1/K2 counted on its
+extended local grid and held against their twins there; against a serial
+twin on the f64 cyclic-reduction factor and a Richardson central
+difference) and the station-sharded CRM at 86,352 padded DOF (against
+the serial CRM on f64 ``bcr`` and a central difference);
+``[sharded4]`` runs ``graft_entry.dryrun_multichip(4)`` (the NF train
+step and the CRM) and the thermal and buckling families on four ranks
+sharing the card through gloo, each against world 1 and a central
+difference.
+
 Each phase's wall time is printed as ``[time]``.
 
 Usage: ``python3 chip_smoke.py`` from the root of the repository, on a
@@ -1833,6 +1845,263 @@ def phase_crm1m(gpu, config="1m", device="cuda"):
     check(rel <= 1e-8, "[crm1m bcr] jvp disagrees with the reverse mode")
 
 
+# ---------------------------------------------------------------------------
+# The sharded solve (eigd_tpu_torch/parallel)
+# ---------------------------------------------------------------------------
+
+# the dry run's settings at the bench mesh (263,682 DOF, 516 lines padded)
+# with the serial twin's adjoint budget: at the dry run's 16 SIBK steps the
+# adjoint stops near 1e-6 of the gradient, where the bound is
+SHARDED_NF = dict(nx=512, ny=256, N=3, m=36, factor="mg",
+                  adjoint_maxiter=40)
+
+
+def sharded_kernel_rows(obj, x0, gen):
+    """K1 on each sharded level's extended grid of L+2 lines (k 1 and N)
+    and K2 on the extended fine grid, each held against its twin and timed
+    beside its bound and SpMM, at the factor of the objective at x0."""
+    from eigd_tpu_torch.ops import cuda_stencil as cs
+
+    with torch.no_grad():
+        A, B = obj.problem.assemble(obj.theta(x0))
+        fac = obj.problem.factor(A, B, obj.cfg.sigma, "normal")
+    ks = (1, obj.cfg.N)
+    rows = []
+    for L, _, _, ny, Wp, _, _ in fac.levels:
+        W = cs.planes_to_stencil(Wp, 2)
+        rows += [k1_row(W, L + 1, ny, 2, k, gen) for k in ks]
+    L, ny = fac.levels[0][0], fac.levels[0][3]
+    W64 = cs.planes_to_stencil(fac.Wp64, 2)
+    rows += [k2_row(W64, L + 1, ny, k, gen) for k in ks]
+    return rows
+
+
+def timed_value_grad(obj, x0, device="cuda"):
+    """(value, gradient, value s, gradient s) of a sharded objective."""
+    x = x0.detach().clone().requires_grad_(True)
+    sync_device(device)
+    t0 = time.perf_counter()
+    v = obj(x)
+    sync_device(device)
+    t1 = time.perf_counter()
+    (g,) = torch.autograd.grad(v, x)
+    sync_device(device)
+    return float(v.detach()), g, t1 - t0, time.perf_counter() - t1
+
+
+def sharded_report(tag, v, tv, tg, gpu, device="cuda"):
+    from eigd_tpu_torch.ops import sync
+
+    launches = launches_now()
+    log(f"[{tag}] objective {v!r}  value {tv:.3f} s  gradient {tg:.3f} s  "
+        f"peak {peak_gib(device):.3f} GiB  K1 launches {launches['K1']}  "
+        f"K2 launches {launches['K2']}  on {gpu}")
+    log(f"[{tag}] host waits by loop {dict(sync.HOST_SYNCS)}  loop exits "
+        f"{dict(sync.LOOP_EXITS)}")
+    return launches
+
+
+def phase_sharded1(gpu, gen, axis, nf=None, crm_config=None,
+                   device="cuda"):
+    """The sharded solve at world 1 (``axis``: NCCL on the card):
+
+    * the NF sharded objective at 512x256 (263,682 DOF, 265,224 padded)
+      on the line-sharded multigrid factor, N 3, m 36, SIBK: value and
+      gradient timed with the host waits and the peak, K1 and K2 counted
+      on the path and held against their twins at its local shapes;
+      against a serial twin on the f64 cyclic-reduction factor (value rel
+      1e-6, gradient max-scaled 1e-6) and a Richardson-4 central
+      difference (1e-4);
+    * the station-sharded CRM at crm_86k (86,352 padded DOF, N 6, m 96) on
+      StationSchurFactor with one Ritz polish step: value against the
+      serial CRM on f64 bcr with the same N, m and polish (rel 1e-6), central
+      difference at h 1e-6 x0 (1e-5).
+
+    Returns (NF launches, kernel rows)."""
+    from eigd_tpu_torch.diag.configs import crm_86k
+    from eigd_tpu_torch.models.crm import CRM
+    from eigd_tpu_torch.parallel import runs
+
+    nf = SHARDED_NF if nf is None else nf
+    obj, x0, part = runs.build(axis, "nf", nf)
+    log(f"[sharded1] NF {part.n} DOF ({part.n_padded} padded, L "
+        f"{part.L}), world {axis.size} on {axis.backend}, factor "
+        f"{nf['factor']}, N {nf['N']}, m {nf['m']}")
+    counters_zero(device)
+    v, g, tv, tg = timed_value_grad(obj, x0, device)
+    launches = sharded_report("sharded1", v, tv, tg, gpu, device)
+    check(np.isfinite(v) and bool(torch.isfinite(g).all()),
+          "[sharded1] value or gradient not finite")
+    if torch.device(device).type == "cuda":
+        check(min(launches.values()) > 0,
+              "[sharded1] the sharded path did not launch both kernels")
+        rows = sharded_kernel_rows(obj, x0, gen)
+    else:
+        rows = []
+
+    t0 = time.perf_counter()
+    sobj, _ = runs.serial_nf_objective(nf["nx"], nf["ny"], nf["N"], nf["m"],
+                                       device=device)
+    vs, gs, tvs, tgs = timed_value_grad(sobj, x0, device)
+    rel_v = abs(v - vs) / abs(vs)
+    rel_g = float((g - gs).abs().max() / gs.abs().max())
+    log(f"[sharded1] serial twin (f64 bcr) objective {vs!r}  value "
+        f"{tvs:.3f} s  gradient {tgs:.3f} s  (with build "
+        f"{time.perf_counter() - t0:.1f} s); value rel {rel_v:.3e} (bound "
+        f"1e-6), gradient max-scaled {rel_g:.3e} (bound 1e-6)")
+    check(rel_v <= 1e-6, "[sharded1] value disagrees with the serial twin")
+    check(rel_g <= 1e-6, "[sharded1] gradient disagrees with the serial "
+                         "twin")
+    del sobj
+    gc.collect()
+
+    pert = torch.as_tensor(np.random.default_rng(7).uniform(size=x0.shape),
+                           device=x0.device)
+    ans = float(pert @ g)
+    fds = {}
+    with torch.no_grad():
+        for h in (1e-2, 5e-3):
+            fds[h] = (float(obj(x0 + h * pert))
+                      - float(obj(x0 - h * pert))) / (2 * h)
+    fd4 = (4.0 * fds[5e-3] - fds[1e-2]) / 3.0
+    rel = abs(ans - fd4) / abs(fd4)
+    log(f"[sharded1] FD check: adjoint {ans!r} richardson-4 {fd4!r} rel "
+        f"{rel:.3e} (bound 1e-4)")
+    check(rel <= 1e-4, "[sharded1] gradient fails the FD check")
+    del obj
+    gc.collect()
+
+    # one Ritz polish step, in both CRMs: the single-vector forward at m 96
+    # leaves the value 1e-11 off, which a central difference at h 1e-8
+    # turns into 5e-5 (the serial CRM on the same chain 1e-5; PERF.md
+    # PR 10)
+    cfg = crm_86k() if crm_config is None else crm_config
+    polish = dict(lanczos_polish=1)
+    cobj, cx0, cpart = runs.build(axis, "crm", dict(cfg, crm_kwargs=polish))
+    log(f"[sharded1 crm] {cpart.n_padded} padded DOF ({cpart.nlines} "
+        f"stations of {cpart.line_dofs}), N {cfg['N']}, m {cfg['m']}, "
+        "polish 1, StationSchurFactor")
+    counters_zero(device)
+    cv, cg, ctv, ctg = timed_value_grad(cobj, cx0, device)
+    sharded_report("sharded1 crm", cv, ctv, ctg, gpu, device)
+    crm = CRM(factor_kind="bcr", lanczos_block=1, device=device, **polish,
+              **cfg)
+    crm.initialize()
+    cvs = float(crm.get_modal_compliance())
+    rel_v = abs(cv - cvs) / abs(cvs)
+    log(f"[sharded1 crm] serial CRM (f64 bcr, block 1, polish 1) {cvs!r}: "
+        f"value rel "
+        f"{rel_v:.3e} (bound 1e-6)")
+    check(rel_v <= 1e-6, "[sharded1 crm] value disagrees with the serial "
+                         "CRM")
+    del crm
+    p = torch.as_tensor(np.random.default_rng(1).uniform(size=cx0.shape),
+                        device=cx0.device)
+    h = 1e-6 * float(cx0[0])
+    with torch.no_grad():
+        fd = (float(cobj(cx0 + h * p)) - float(cobj(cx0 - h * p))) / (2 * h)
+    ans = float(p @ cg)
+    rel = abs(ans - fd) / abs(fd)
+    log(f"[sharded1 crm] FD check: adjoint {ans!r} central (h {h:g}) "
+        f"{fd!r} rel {rel:.3e} (bound 1e-5)")
+    check(rel <= 1e-5, "[sharded1 crm] gradient fails the FD check")
+    return launches, rows
+
+
+# the world-4 families at tests/test_sharding.py's fast sizes besides the
+# dry run's two (buckling at 12x4: at 8x4 a floating subdomain makes JAX's
+# value NaN on 4 ranks)
+SHARDED4 = (
+    ("thermal", dict(nx=8, ny=4, N=2, m=24, cg_maxiter=300,
+                     adjoint_maxiter=30), 1e-6),
+    ("buckling", dict(nx=12, ny=4, N=1, m=20, sigma=0.008,
+                      adjoint_maxiter=25, ks_rho=160.0, load_frac=0.3),
+     1e-6),
+)
+
+
+def held4(fam, r4, r1, bar, fd=None):
+    """Hold a 4-rank value and gradient against world 1 (1e-6) and the
+    4-rank directional derivative against a central difference (``bar``):
+    the 4-rank one in r4, or ``fd``, world 1's."""
+    g4, g1 = np.asarray(r4["grad"]), r1["grad"].detach().cpu().numpy()
+    rel_v = abs(r4["value"] - r1["value"]) / abs(r1["value"])
+    rel_g = float(np.abs(g4 - g1).max() / np.abs(g1).max())
+    fd, where = (r4["fd"], "4 ranks") if fd is None else (fd, "world 1")
+    rel_fd = abs(r4["directional"] - fd) / abs(fd)
+    log(f"[sharded4 {fam}] {r4['n_padded']} padded DOF on 4 ranks "
+        f"({r4['backend']}, staged {r4['staged']}): objective "
+        f"{r4['value']!r}  {r4['timing']}  launches {r4['launches']}; "
+        f"world 1 ({r1['backend']}) {r1['value']!r} value "
+        f"{r1['value_s']:.3f} s gradient {r1['grad_s']:.3f} s; value rel "
+        f"{rel_v:.3e}, gradient max-scaled {rel_g:.3e} (bound 1e-6); FD "
+        f"({where}) rel {rel_fd:.3e} (bound {bar:g})")
+    check(rel_v <= 1e-6 and rel_g <= 1e-6,
+          f"[sharded4 {fam}] 4 ranks disagree with world 1")
+    check(rel_fd <= bar, f"[sharded4 {fam}] gradient fails the FD check")
+
+
+def phase_sharded4(gpu, axis, device="cuda", families=SHARDED4):
+    """Four ranks sharing the card through gloo (NCCL refuses two ranks
+    on one device; ``Axis.staged``: ppermute through host buffers, the
+    compute on the card):
+
+    * ``dryrun_multichip(4)``: the NF train step (mg, 64x32) and the CRM,
+      each value and gradient against world 1 on ``axis`` (1e-6), and the
+      4-rank gradient along a seeded direction against world 1's central
+      difference at h 1e-6 (1e-6; CRM 1e-5);
+    * thermal and buckling on four ranks, each against world 1 (1e-6) and
+      a 4-rank central difference at h 1e-6 (1e-6).
+
+    Returns the dry run's NF K1/K2 launches on rank 0."""
+    from eigd_tpu_torch.graft_entry import (DRYRUN_CRM, DRYRUN_NF,
+                                            dryrun_multichip)
+    from eigd_tpu_torch.parallel import launch, runs
+
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(4, device=device)
+    log(f"[sharded4] dry run on {dry['backend']} (staged "
+        f"{dry['staged']}) in {time.perf_counter() - t0:.1f} s")
+    specs4, specs1 = [], []
+    for fam, kw, _ in families:
+        obj, x0, _ = runs.build(axis, fam, kw)
+        pert = np.random.default_rng(7).uniform(size=tuple(x0.shape))
+        x0 = x0.detach().cpu().numpy()
+        specs4.append((fam, kw, dict(x0=x0, pert=pert, h=1e-6)))
+        specs1.append((fam, kw, dict(x0=x0)))
+        del obj
+    t0 = time.perf_counter()
+    w4 = launch.run(runs.families, 4, args=(specs4,), device=device,
+                    timeout=900.0)[0]
+    log(f"[sharded4] 4 ranks: {len(w4)} families in "
+        f"{time.perf_counter() - t0:.1f} s")
+    # world 1 at the dry run's design points, with the central differences
+    x_nf = np.full(dry["grad"].shape, 0.95)  # the train step's x0
+    p_nf = np.random.default_rng(7).uniform(size=x_nf.shape)
+    p_crm = np.random.default_rng(7).uniform(size=dry["crm_x0"].shape)
+    dry1 = [("nf", DRYRUN_NF, dict(x0=x_nf, pert=p_nf, h=1e-6)),
+            ("crm", DRYRUN_CRM, dict(x0=dry["crm_x0"], pert=p_crm, h=1e-6))]
+    w1 = runs.families(axis, dry1 + specs1)
+    for (fam, _, opts), r1, bar, key in zip(dry1, w1, (1e-6, 1e-5),
+                                            ("", "crm_")):
+        nf = fam == "nf"
+        g4 = dry[key + "grad"]
+        r4 = {"value": dry["objective"] if nf else dry["crm"], "grad": g4,
+              "directional": float(opts["pert"] @ g4),
+              "n_padded": r1["n_padded"], "backend": dry["backend"],
+              "staged": dry["staged"], "launches": dry["launches"] if nf
+              else {}, "timing": f"value and gradient {dry[fam + '_s']:.3f} s"}
+        held4(f"dry run {fam}", r4, r1, bar, fd=r1["fd"])
+    for (fam, _, bar), r4, r1 in zip(families, w4, w1[len(dry1):]):
+        r4 = dict(r4, timing=f"value {r4['value_s']:.3f} s  gradient "
+                             f"{r4['grad_s']:.3f} s")
+        held4(fam, r4, r1, bar)
+    if torch.device(device).type == "cuda":
+        check(min(dry["launches"].values()) > 0,
+              "[sharded4] the NF path did not launch both kernels")
+    return dry["launches"]
+
+
 def kernel_entry(name, source, replaces, launches, rep, **extra):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1902,6 +2171,15 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     phase("crm1m", phase_crm1m, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    from eigd_tpu_torch.parallel import launch
+
+    with launch.local_axis("cuda") as axis:
+        lsh1, ssh1 = phase("sharded1", phase_sharded1, gpu, gen, axis)
+        gc.collect()
+        torch.cuda.empty_cache()
+        lsh4 = phase("sharded4", phase_sharded4, gpu, axis)
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     rows = {r["name"]: r for r in probe_rows}
@@ -1918,12 +2196,17 @@ def main():
                                        "thermal1m": lth["K1"],
                                        "measure": lme["K1"],
                                        **{f"thermal-dl {p}": v["K1"]
-                                          for p, v in ldl.items()}},
+                                          for p, v in ldl.items()},
+                                       "sharded1": lsh1["K1"],
+                                       "sharded4 rank 0": lsh4["K1"]},
                      at_1m={k: s1m["K1 1025x513 ndof 2 k 8"][k] for k in at},
                      at_thermal1m=[{"name": r["name"], **{k: r[k] for k in at}}
                                    for n, r in sth.items()
                                    if n.startswith("K1")],
-                     host_us_per_call=host),
+                     host_us_per_call=host,
+                     at_sharded1=[{"name": r["name"], **{k: r[k] for k in at}}
+                                  for r in ssh1
+                                  if r["name"].startswith("K1")]),
         kernel_entry("K2 f64 9-point block-stencil matvec (513x257, ndof 2, "
                      "k 16)", "eigd_tpu_torch/csrc/stencil.cu",
                      "eigd_tpu/ops/pallas_stencil.py:299", l1m["K2"],
@@ -1934,13 +2217,18 @@ def main():
                                        "measure": lme["K2"],
                                        **{f"thermal-dl {p}": v["K2"]
                                           for p, v in ldl.items()},
-                                       "buckle": lbk["K2"]},
+                                       "buckle": lbk["K2"],
+                                       "sharded1": lsh1["K2"],
+                                       "sharded4 rank 0": lsh4["K2"]},
                      at_1m={k: s1m["K2 1025x513 ndof 2 k 6"][k] for k in at},
                      at_thermal1m=[{"name": r["name"], **{k: r[k] for k in at}}
                                    for n, r in sth.items()
                                    if n.startswith("K2")],
                      at_buckle=[{"name": r["name"], **{k: r[k] for k in at}}
-                                for r in sbk.values()]),
+                                for r in sbk.values()],
+                     at_sharded1=[{"name": r["name"], **{k: r[k] for k in at}}
+                                  for r in ssh1
+                                  if r["name"].startswith("K2")]),
         kernel_entry("K3 stencil floor probe (noshift9; 1040x513, C 16)",
                      "eigd_tpu_torch/csrc/probes.cu",
                      "scripts/diag_pallas_floor.py:87",

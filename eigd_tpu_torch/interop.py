@@ -168,3 +168,35 @@ def mg_factor_from_numpy(Ws, dinvs, lmaxs, coarse_inv, W64, shapes, ndof,
                         _t(coarse_inv, device, torch.float32),
                         _t(W64, device, torch.float64), shapes, ndof,
                         **options)
+
+
+def padded_index(part):
+    """(n,) position of each global DOF of a line-partitioned grid
+    (``parallel.grid.GridPartition``) in the padded layout of concatenated
+    rank shards (line l on rank l // L at local line l % L)."""
+    b = part.line_dofs
+    rank, lo = np.divmod(np.arange(part.nlines), part.L)
+    start = rank * part.n_local + lo * b
+    return (start[:, None] + np.arange(b)[None, :]).reshape(-1)
+
+
+def to_padded(x, part):
+    """Global (n,) or (n, k) array or tensor -> the padded shard layout
+    (n_padded, ...), zero on padded lines."""
+    idx = padded_index(part)
+    shape = (part.n_padded,) + tuple(x.shape[1:])
+    if isinstance(x, torch.Tensor):
+        out = x.new_zeros(shape)
+        out[torch.as_tensor(idx, device=x.device)] = x
+        return out
+    out = np.zeros(shape, dtype=np.asarray(x).dtype)
+    out[idx] = x
+    return out
+
+
+def from_padded(y, part):
+    """Inverse of ``to_padded``: the global rows of a padded array."""
+    idx = padded_index(part)
+    if isinstance(y, torch.Tensor):
+        return y[torch.as_tensor(idx, device=y.device)]
+    return np.asarray(y)[idx]

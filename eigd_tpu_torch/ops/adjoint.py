@@ -12,7 +12,9 @@ recurrences) becomes a batch dimension. Every solver takes the normal
 mode, A phi = lam B phi, and the buckling mode, the pencil
 K phi + lam G phi = 0 with (A, B) = (G, K) and K-orthonormal Phi, whose
 adjoint systems are (B + lam_i A) psi_i = -proj(Phib_i), in every solver
-but DL (``check_dl_chain``).
+but DL (``check_dl_chain``). With ``axis`` (``collective.Axis``) the DOF
+dimension of every (n, .) block is sharded over its ranks and every inner
+product is all-reduced, so each loop decision reads a replicated value.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import types
 
 import torch
 
-from .collective import pdot, qr_tall
+from .collective import pdot, psum, qr_tall
 from .lanczos import LanczosResult, _tridiagonal
 from .operators import as_operator
 from .sync import host_bool
@@ -53,7 +55,7 @@ def are_eigenvalues_repeated(lam, atol=1e-5):
 
 
 def generate_adjoint_correction(lam, Phi, psi, G=None, Phib=None,
-                                eig_atol=1e-5, mode="normal"):
+                                eig_atol=1e-5, mode="normal", axis=None):
     """Correct the adjoint solution along the computed eigenvectors.
 
     Distinct pairs fold directly into psi; numerically repeated pairs get
@@ -62,7 +64,7 @@ def generate_adjoint_correction(lam, Phi, psi, G=None, Phib=None,
     Returns (psi_corrected, EigCorrection).
     """
     N = lam.shape[0]
-    G0 = -pdot(Phi.T, Phib) if G is None else G
+    G0 = -pdot(Phi.T, Phib, axis) if G is None else G
     if mode == "buckling":
         G0 = lam[:, None] * G0
     elif mode != "normal":
@@ -94,7 +96,7 @@ def generate_adjoint_correction(lam, Phi, psi, G=None, Phib=None,
 
 
 def total_derivative_weights(lam, Phi, lamb, Phib, psi, adj_corr_data=None,
-                             mode="normal"):
+                             mode="normal", axis=None):
     """The (n, N) weight blocks W_A, W_B of the total derivative
     df/dx = dAdx(W_A, Phi) -/+ dBdx(W_B, Phi) (minus in normal mode, plus
     in buckling mode):
@@ -112,7 +114,7 @@ def total_derivative_weights(lam, Phi, lamb, Phib, psi, adj_corr_data=None,
     if adj_corr_data is None:
         adj_corr_data = no_correction(N, Phi.dtype, Phi.device)
     Xi, Eta = adj_corr_data.Xi, adj_corr_data.Eta
-    beta = 0.5 * torch.sum(Phi * Phib, dim=0)
+    beta = 0.5 * psum(torch.sum(Phi * Phib, dim=0), axis)
     if mode == "normal":
         W_A = Phi * lamb[None, :] + psi + Phi @ Xi
         W_B = (Phi * (beta + lam * lamb)[None, :] + psi * lam[None, :]
@@ -128,7 +130,7 @@ def total_derivative_weights(lam, Phi, lamb, Phib, psi, adj_corr_data=None,
 
 def add_eig_total_derivative(lam, Phi, lamb, Phib, psi, dAdx, dBdx, dfdx,
                              adj_corr_data=None, mode="normal",
-                             deriv_type="tensor"):
+                             deriv_type="tensor", axis=None):
     """dfdx + dAdx(W_A, Phi) -/+ dBdx(W_B, Phi) (minus in normal mode, plus
     in buckling mode) with the weight blocks of
     ``total_derivative_weights``; ``dAdx(W, V)`` contracts
@@ -136,7 +138,7 @@ def add_eig_total_derivative(lam, Phi, lamb, Phib, psi, dAdx, dBdx, dfdx,
     del deriv_type  # the batched contraction always
     W_A, W_B = total_derivative_weights(lam, Phi, lamb, Phib, psi,
                                         adj_corr_data=adj_corr_data,
-                                        mode=mode)
+                                        mode=mode, axis=axis)
     if dAdx is not None:
         dfdx = dfdx + dAdx(W_A, Phi)
     if dBdx is not None:
@@ -151,22 +153,22 @@ def add_eig_total_derivative(lam, Phi, lamb, Phib, psi, dAdx, dBdx, dfdx,
 
 
 def eval_adjoint_residual_norm(A, B, lam, Phi, Phib, psi, mode="normal",
-                               b_ortho=False):
+                               b_ortho=False, axis=None):
     """res[i] = || A psi_i - lam_i B psi_i - b_i || (buckling mode:
     || B psi_i + lam_i A psi_i - b_i ||),
     b_i = -(Phib_i - B phi_i (phi_i . Phib_i)), and the orthogonality
     |phi_i^T B psi_i| (or max_j |(B phi_j)^T psi_i| if b_ortho)."""
     A, B = as_operator(A), as_operator(B)
     BPhi = B.mv(Phi)
-    proj_coef = torch.sum(Phi * Phib, dim=0)
+    proj_coef = psum(torch.sum(Phi * Phib, dim=0), axis)
     bmat = -(Phib - BPhi * proj_coef[None, :])
     r = _shifted_mv(A, B, lam, psi, mode) - bmat
     if b_ortho:
-        r = r - BPhi @ (Phi.T @ r)
-        ortho = torch.max(torch.abs(BPhi.T @ psi), dim=0).values
+        r = r - BPhi @ pdot(Phi.T, r, axis)
+        ortho = torch.max(torch.abs(pdot(BPhi.T, psi, axis)), dim=0).values
     else:
-        ortho = torch.abs(torch.sum(BPhi * psi, dim=0))
-    res = torch.sqrt(torch.sum(r * r, dim=0))
+        ortho = torch.abs(psum(torch.sum(BPhi * psi, dim=0), axis))
+    res = torch.sqrt(psum(torch.sum(r * r, dim=0), axis))
     return res, ortho
 
 
@@ -176,7 +178,7 @@ def eval_adjoint_residual_norm(A, B, lam, Phi, Phib, psi, mode="normal",
 
 
 def laa(Phib, B, factor, res: LanczosResult, b_ortho=False, mode="normal",
-        approx=False):
+        approx=False, axis=None):
     """Galerkin solution of the adjoint equations in the Lanczos subspace:
 
     D[i, j] = (Ys_i . Yb_j) / (theta_j - theta_i) (masked), then
@@ -192,7 +194,7 @@ def laa(Phib, B, factor, res: LanczosResult, b_ortho=False, mode="normal",
     lam = res.lam[:N]
     sigma = res.sigma
 
-    C = Ys.T @ (V @ Phib)  # (m, N)
+    C = Ys.T @ pdot(V, Phib, axis)  # (m, N)
     denom = theta_s[None, :N] - theta_s[:, None]
     rows = torch.arange(m, device=V.device)[:, None]
     cols = torch.arange(N, device=V.device)[None, :]
@@ -253,23 +255,24 @@ def _shifted_mv(A, B, lam, X, mode):
     raise ValueError(f"Unknown mode {mode!r}")
 
 
-def _projected_adjoint_residual(Phib, A, B, lam, Phi, BPhi, psi, mode):
+def _projected_adjoint_residual(Phib, A, B, lam, Phi, BPhi, psi, mode,
+                                axis=None):
     """R = proj(-Phib - (A - lam B) psi) (buckling: (B + lam A)): the sibk
     outer-round residual."""
     Rm = -Phib - _shifted_mv(A, B, lam, psi, mode)
-    return Rm - BPhi @ (Phi.T @ Rm)
+    return Rm - BPhi @ pdot(Phi.T, Rm, axis)
 
 
-def sibk_true_resnorm(Phib, A, B, lam, Phi, psi, mode="normal"):
+def sibk_true_resnorm(Phib, A, B, lam, Phi, psi, mode="normal", axis=None):
     """Absolute projected-residual norms of the N adjoint systems."""
     R = _projected_adjoint_residual(Phib, A, B, lam, Phi, B.mv(Phi), psi,
-                                    mode)
-    return torch.sqrt(torch.sum(R * R, dim=0))
+                                    mode, axis)
+    return torch.sqrt(psum(torch.sum(R * R, dim=0), axis))
 
 
 def _sibk_setup(Phib, A, B, lam, Phi, mode="normal", sigma=None,
                 factor=None, rtol=1e-10, atol=1e-30, maxiter=50,
-                check_every=3, mixed=False, ladder="approx"):
+                check_every=3, mixed=False, ladder="approx", axis=None):
     """The sibk round machinery: ``one_round(psi, eps_f)`` grows one
     block-Krylov ladder of up to T = ceil(maxiter / N) block steps from the
     projected residual of psi and updates psi by batched shifted
@@ -283,8 +286,8 @@ def _sibk_setup(Phib, A, B, lam, Phi, mode="normal", sigma=None,
     device = Phib.device
 
     BPhi = B.mv(Phi)
-    G = -(Phi.T @ Phib)
-    rnorm0 = torch.sqrt(torch.max(torch.sum(Phib * Phib, dim=0)))
+    G = -pdot(Phi.T, Phib, axis)
+    rnorm0 = torch.sqrt(torch.max(psum(torch.sum(Phib * Phib, dim=0), axis)))
     tol = torch.clamp(rtol * rnorm0, min=atol)
 
     if mode == "normal":
@@ -298,11 +301,11 @@ def _sibk_setup(Phib, A, B, lam, Phi, mode="normal", sigma=None,
 
     def op_residual(psi_):
         return _projected_adjoint_residual(Phib, A, B, lam, Phi, BPhi, psi_,
-                                           mode)
+                                           mode, axis)
 
     def true_resnorm(psi_):
         R = op_residual(psi_)
-        return torch.sqrt(torch.sum(R * R, dim=0))
+        return torch.sqrt(psum(torch.sum(R * R, dim=0), axis))
 
     T = max(1, -(-maxiter // N))
     K = T * N
@@ -329,7 +332,7 @@ def _sibk_setup(Phib, A, B, lam, Phi, mode="normal", sigma=None,
     BPhi_l = lcast(BPhi)
 
     def proj_l(X):
-        return X - BPhi_l @ (Phi_l.T @ X)
+        return X - BPhi_l @ pdot(Phi_l.T, X, axis)
 
     def solve_all(H, r0, cheap=False):
         """Batched shifted least-squares over the (possibly truncated)
@@ -364,9 +367,9 @@ def _sibk_setup(Phib, A, B, lam, Phi, mode="normal", sigma=None,
         R = lcast(op_residual(psi_))
         # within-round exit at eps_f * (round residual scale)
         rnorm_round = torch.sqrt(
-            torch.max(torch.sum(R * R, dim=0))).to(dtype)
+            torch.max(psum(torch.sum(R * R, dim=0), axis))).to(dtype)
         tol_round = torch.maximum(tol, eps_f * rnorm_round)
-        Wseed, r0 = qr_tall(R)  # (n, N), (N, N)
+        Wseed, r0 = qr_tall(R, axis)  # (n, N), (N, N)
         W = torch.zeros((K + N, n), dtype=ldt, device=device)
         W[:N] = Wseed.T
         Z = torch.zeros((K, n), dtype=ldt, device=device)
@@ -377,13 +380,13 @@ def _sibk_setup(Phib, A, B, lam, Phi, mode="normal", sigma=None,
             Zblk = lcast(factor_lmv(W[lo:lo + N].T))  # (n, N) blocked apply
             w = proj_l(lcast(ladder_op.mv(Zblk)))
             mask = (col < lo + N).to(ldt)
-            h1 = (W @ w) * mask[:, None]
+            h1 = pdot(W, w, axis) * mask[:, None]
             w = w - W.T @ h1
-            h2 = (W @ w) * mask[:, None]
+            h2 = pdot(W, w, axis) * mask[:, None]
             w = w - W.T @ h2
             w = proj_l(w)
             h = h1 + h2
-            Qb, Rb = qr_tall(w)
+            Qb, Rb = qr_tall(w, axis)
             W[lo + N:lo + 2 * N] = Qb.T
             Z[lo:lo + N] = Zblk.T
             h[lo + N:lo + 2 * N] = Rb
@@ -410,7 +413,8 @@ def _sibk_setup(Phib, A, B, lam, Phi, mode="normal", sigma=None,
 
 def sibk(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
          factor=None, rtol=1e-10, atol=1e-30, eig_atol=1e-5, maxiter=50,
-         nrestart=2, check_every=3, mixed=False, ladder="approx"):
+         nrestart=2, check_every=3, mixed=False, ladder="approx",
+         axis=None):
     """Shift-invert block Krylov adjoint solver.
 
     One shared Krylov space per round for all N right-hand sides; the N
@@ -425,7 +429,8 @@ def sibk(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
     """
     s = _sibk_setup(Phib, A, B, lam, Phi, mode=mode, sigma=sigma,
                     factor=factor, rtol=rtol, atol=atol, maxiter=maxiter,
-                    check_every=check_every, mixed=mixed, ladder=ladder)
+                    check_every=check_every, mixed=mixed, ladder=ladder,
+                    axis=axis)
     N = Phib.shape[1]
     dtype = Phib.dtype
     if psi is None:
@@ -451,7 +456,7 @@ def sibk(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
         nsteps += t_end
 
     # enforce Phi^T B psi = 0 before the eigendirection fold-in
-    psi = psi - Phi @ (s.BPhi.T @ psi)
+    psi = psi - Phi @ pdot(s.BPhi.T, psi, axis)
     psi, data = generate_adjoint_correction(lam, Phi, psi, G=s.G,
                                             eig_atol=eig_atol, mode=mode)
     denom = torch.clamp(s.rnorm0, min=1e-300)
@@ -467,7 +472,7 @@ def sibk(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
 
 def pcpg(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
          factor=None, rtol=1e-10, atol=1e-30, eig_atol=1e-5, maxiter=100,
-         reset=25, precond=None, deflate=None):
+         reset=25, precond=None, deflate=None, axis=None):
     """PCPG adjoint solver (Alvin, AIAA J. 1997).
 
     All N systems advance together with per-column coefficients; converged
@@ -493,7 +498,7 @@ def pcpg(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
         psi = torch.zeros_like(Phib)
 
     BPhi = B.mv(Phi)
-    rnorm0 = torch.sqrt(torch.max(torch.sum(Phib * Phib, dim=0)))
+    rnorm0 = torch.sqrt(torch.max(psum(torch.sum(Phib * Phib, dim=0), axis)))
     tol = torch.clamp(rtol * rnorm0, min=atol)
 
     if precond is None:
@@ -507,13 +512,13 @@ def pcpg(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
             raise NotImplementedError(
                 "pcpg deflation handling is normal-mode only")
         U, BU = deflate
-        psi = psi + U.T @ ((U @ Phib) / lam[None, :])
+        psi = psi + U.T @ (pdot(U, Phib, axis) / lam[None, :])
 
         def defl_r(X):  # residual space: coefficients u_r . X
-            return X - BU.T @ (U @ X)
+            return X - BU.T @ pdot(U, X, axis)
 
         def defl_z(X):  # solution space: coefficients Bu_r . X
-            return X - U.T @ (BU @ X)
+            return X - U.T @ pdot(BU, X, axis)
     else:
         def defl_r(X):
             return X
@@ -521,7 +526,7 @@ def pcpg(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
         defl_z = defl_r
 
     R = -Phib - _shifted_mv(A, B, lam, psi, mode)
-    G = Phi.T @ R
+    G = pdot(Phi.T, R, axis)
     R = defl_r(R - BPhi @ G)
 
     hist = torch.full((maxiter, N), torch.nan, dtype=dtype,
@@ -531,28 +536,29 @@ def pcpg(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
     zTr_prev = torch.ones(N, dtype=dtype, device=Phib.device)
     k = 0
     while k < maxiter and host_bool(
-            torch.any(torch.sum(R * R, dim=0) > tol * tol), "pcpg"):
-        resn = torch.sqrt(torch.sum(R * R, dim=0))
+            torch.any(psum(torch.sum(R * R, dim=0), axis) > tol * tol),
+            "pcpg"):
+        resn = torch.sqrt(psum(torch.sum(R * R, dim=0), axis))
         hist[k] = resn
         active = resn > tol
-        Z = M(defl_r(R - BPhi @ (Phi.T @ R)))
-        Z = defl_z(Z - Phi @ (BPhi.T @ Z))
-        zTr = torch.sum(Z * R, dim=0)
+        Z = M(defl_r(R - BPhi @ pdot(Phi.T, R, axis)))
+        Z = defl_z(Z - Phi @ pdot(BPhi.T, Z, axis))
+        zTr = psum(torch.sum(Z * R, dim=0), axis)
         if k % reset == 0:
             beta = torch.zeros_like(zTr)
         else:
-            zTr_flex = zTr - torch.sum(Z * Rprev, dim=0)
+            zTr_flex = zTr - psum(torch.sum(Z * Rprev, dim=0), axis)
             beta = zTr_flex / torch.where(zTr_prev == 0.0, 1.0, zTr_prev)
         P = Z + beta[None, :] * P0
         tA = A.mv(P)
         tB = B.mv(P)
         if mode == "normal":
-            denom = (torch.sum(tA * P, dim=0)
-                     - lam * torch.sum(tB * P, dim=0))
+            denom = psum(torch.sum(tA * P, dim=0)
+                         - lam * torch.sum(tB * P, dim=0), axis)
             tS = tA - tB * lam[None, :]
         else:
-            denom = (torch.sum(tB * P, dim=0)
-                     + lam * torch.sum(tA * P, dim=0))
+            denom = psum(torch.sum(tB * P, dim=0)
+                         + lam * torch.sum(tA * P, dim=0), axis)
             tS = tB + tA * lam[None, :]
         step = torch.where(active & (denom > 0.0),
                            zTr / torch.where(denom == 0.0, 1.0, denom), 0.0)
@@ -562,11 +568,11 @@ def pcpg(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
         P0, zTr_prev = P, zTr
         k += 1
 
-    psi = psi - Phi @ (BPhi.T @ psi)
+    psi = psi - Phi @ pdot(BPhi.T, psi, axis)
     psi, data = generate_adjoint_correction(lam, Phi, psi, G=G,
                                             eig_atol=eig_atol, mode=mode)
     denom = torch.clamp(rnorm0, min=1e-300)
-    info = {"res": torch.sqrt(torch.sum(R * R, dim=0)) / denom,
+    info = {"res": torch.sqrt(psum(torch.sum(R * R, dim=0), axis)) / denom,
             "niter": k, "hist": hist / denom}
     return psi, data, info
 
@@ -578,7 +584,7 @@ def pcpg(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
 
 def pgmres(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
            factor=None, rtol=1e-10, atol=1e-30, eig_atol=1e-5, maxiter=50,
-           check_every=8):
+           check_every=8, axis=None):
     """Projected GMRES adjoint solver: one Arnoldi recurrence a mode on its
     own shifted operator (A - lam_i B) with the factor as the right
     preconditioner, the N recurrences advanced as one batch.
@@ -601,11 +607,11 @@ def pgmres(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
         psi = torch.zeros_like(Phib)
 
     BPhi = B.mv(Phi)
-    rnorm0 = torch.sqrt(torch.max(torch.sum(Phib * Phib, dim=0)))
+    rnorm0 = torch.sqrt(torch.max(psum(torch.sum(Phib * Phib, dim=0), axis)))
     tol = torch.clamp(rtol * rnorm0, min=atol)
 
     R0 = -Phib - _shifted_mv(A, B, lam, psi, mode)
-    G = Phi.T @ R0
+    G = pdot(Phi.T, R0, axis)
     R0 = R0 - BPhi @ G
 
     K = maxiter
@@ -622,7 +628,7 @@ def pgmres(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
         rhs[:, 0] = beta0
         return _lstsq_qr(H + sub[None] * unit[:, None, :], rhs)
 
-    beta0 = torch.sqrt(torch.sum(R0 * R0, dim=0))  # (N,)
+    beta0 = torch.sqrt(psum(torch.sum(R0 * R0, dim=0), axis))  # (N,)
     W = torch.zeros((N, K + 1, n), dtype=dtype, device=device)
     W[:, 0] = torch.where(beta0 > 0.0, 1.0, 0.0)[:, None] * (
         R0 / torch.where(beta0 == 0.0, 1.0, beta0)[None, :]).T
@@ -636,16 +642,16 @@ def pgmres(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
     while j < K:
         live = (~done).to(dtype)
         wj = W[:, j].T  # (n, N)
-        z = factor.mv(wj - BPhi @ (Phi.T @ wj))
+        z = factor.mv(wj - BPhi @ pdot(Phi.T, wj, axis))
         w = _shifted_mv(A, B, lam, z, mode)
-        w = (w - BPhi @ (Phi.T @ w)).T  # (N, n)
+        w = (w - BPhi @ pdot(Phi.T, w, axis)).T  # (N, n)
         mask = (col <= j).to(dtype)
-        h1 = torch.einsum("ikn,in->ik", W, w) * mask
+        h1 = psum(torch.einsum("ikn,in->ik", W, w), axis) * mask
         w = w - torch.einsum("ik,ikn->in", h1, W)
-        h2 = torch.einsum("ikn,in->ik", W, w) * mask
+        h2 = psum(torch.einsum("ikn,in->ik", W, w), axis) * mask
         w = w - torch.einsum("ik,ikn->in", h2, W)
         h = h1 + h2
-        nw2 = torch.sum(w * w, dim=1)
+        nw2 = psum(torch.sum(w * w, dim=1), axis)
         ok = nw2 > 1e-60
         nw = torch.sqrt(torch.where(ok, nw2, 1.0))
         h[:, j + 1] = torch.where(ok, nw, 0.0)
@@ -668,7 +674,7 @@ def pgmres(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
     use = (beta0 >= tol).to(dtype)
     psi = psi + dpsi * use[None, :]
 
-    psi = psi - Phi @ (BPhi.T @ psi)
+    psi = psi - Phi @ pdot(BPhi.T, psi, axis)
     psi, data = generate_adjoint_correction(lam, Phi, psi, G=G,
                                             eig_atol=eig_atol, mode=mode)
     denom = torch.clamp(rnorm0, min=1e-300)

@@ -41,6 +41,7 @@ import torch
 from torch.profiler import record_function
 
 from . import adjoint as adj
+from .collective import pdot, psum
 from .factor import make_shift_factor
 from .lanczos import b_orthonormalize_rows, block_lanczos_solve, lanczos_solve
 from .operators import DenseOperator
@@ -56,6 +57,9 @@ class EighGenConfig:
         forces (CPU tensors then run the kernels' plain twins); "off"
         disables. (JAX's ``pallas_mv``; its "interpret" value has no
         counterpart.)
+    axis : the shard axis (``collective.Axis``) when the DOF dimension is
+        sharded over the ranks of a process group (the counterpart of JAX's
+        shard_map mesh-axis name); None is the single-device path.
     """
 
     N: int = 6
@@ -81,6 +85,7 @@ class EighGenConfig:
     measure_eig_res: bool = False  # block solver at polish 0: measure the
     # true pencil residual into LanczosResult.eig_res_measured
     kernel_mv: str = "auto"
+    axis: object = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,18 +136,20 @@ def _forward_ops(theta, problem, A, B, cfg):
                                    kind=cfg.factor_kind)
     deflate = None
     if problem.nullspace is not None:
-        deflate = b_orthonormalize_rows(problem.nullspace(theta), B.mv)
+        deflate = b_orthonormalize_rows(problem.nullspace(theta), B.mv,
+                                        axis=cfg.axis)
     v0 = problem.v0(theta) if problem.v0 is not None else None
     if cfg.block <= 1:
         res = lanczos_solve(A, B, factor, cfg.sigma, cfg.N, cfg.m,
                             mode=cfg.mode, seed=cfg.seed, deflate=deflate,
-                            tol=cfg.lanczos_tol, v0=v0,
+                            axis=cfg.axis, tol=cfg.lanczos_tol, v0=v0,
                             check_every=max(cfg.lanczos_check_every, 8),
                             polish=cfg.polish)
         return A, B, res, factor
     res = block_lanczos_solve(A, B, factor, cfg.sigma, cfg.N, cfg.m,
                               cfg.block, mode=cfg.mode, seed=cfg.seed,
-                              deflate=deflate, tol=cfg.lanczos_tol, v0=v0,
+                              deflate=deflate, axis=cfg.axis,
+                              tol=cfg.lanczos_tol, v0=v0,
                               ortho=cfg.lanczos_ortho,
                               check_every=cfg.lanczos_check_every,
                               polish=cfg.polish,
@@ -164,15 +171,16 @@ def _projected_solve(rhs, A, B, res, factor, cfg, method, deflate=None,
     with stage("laa"):
         psi0 = adj.laa(rhs, B, factor, res, b_ortho=True, mode=cfg.mode,
                        approx=(cfg.adjoint_mixed
-                               and method in ("sibk", "pcpg")))
+                               and method in ("sibk", "pcpg")),
+                       axis=cfg.axis)
     with stage(method):
         if method == "laa":
             return adj.generate_adjoint_correction(
                 res.lam, res.Phi, psi0, Phib=rhs, eig_atol=cfg.eig_atol,
-                mode=cfg.mode)
+                mode=cfg.mode, axis=cfg.axis)
         kw = dict(mode=cfg.mode, psi=psi0, factor=factor,
                   rtol=cfg.adjoint_rtol, eig_atol=cfg.eig_atol,
-                  maxiter=cfg.adjoint_maxiter)
+                  maxiter=cfg.adjoint_maxiter, axis=cfg.axis)
         if method == "sibk":
             psi, data, _ = adj.sibk(
                 rhs, A, B, res.lam, res.Phi, sigma=res.sigma,
@@ -201,7 +209,8 @@ def solve_eig_adjoint(A, B, res, factor, lam_bar, Phi_bar, cfg,
     ``deflate``: the (U, BU) rows deflated out of the forward solve; pcpg
     resolves those components explicitly. ``dl`` runs the reverse sweep
     through the single-vector chain: it raises on a block solve (no
-    three-term chain), a deflated chain and the buckling mode. Returns
+    three-term chain), a deflated chain, the buckling mode and a sharded
+    solve (its sweep reduces over the local shard only). Returns
     (W_A, W_B, Phi) such that the matrix cotangents are A_bar = W_A Phi^T
     and B_bar = -W_B Phi^T (normal mode), +W_B Phi^T (buckling mode).
     """
@@ -210,6 +219,10 @@ def solve_eig_adjoint(A, B, res, factor, lam_bar, Phi_bar, cfg,
             raise ValueError(
                 "adjoint_method='dl' requires the single-vector Lanczos "
                 "solver (block=1); the block solver has no three-term chain")
+        if cfg.axis is not None:
+            raise ValueError(
+                "adjoint_method='dl' has no sharded form (its reverse sweep "
+                "takes unreduced inner products); use sibk, pcpg or pgmres")
         adj.check_dl_chain(res, cfg.mode)
         psi, data = adj.dl(Phi_bar, B, factor, res, mode=cfg.mode,
                            eig_atol=cfg.eig_atol)
@@ -218,7 +231,7 @@ def solve_eig_adjoint(A, B, res, factor, lam_bar, Phi_bar, cfg,
                                      cfg.adjoint_method, deflate=deflate)
     W_A, W_B = adj.total_derivative_weights(
         res.lam, res.Phi, lam_bar, Phi_bar, psi, adj_corr_data=data,
-        mode=cfg.mode)
+        mode=cfg.mode, axis=cfg.axis)
     return W_A, W_B, res.Phi
 
 
@@ -307,7 +320,7 @@ class EighGen(torch.autograd.Function):
                 and ctx.cfg.adjoint_method == "pcpg"):
             theta = tuple(leaves) if ctx.packed else leaves[0]
             deflate = b_orthonormalize_rows(ctx.problem.nullspace(theta),
-                                            B.mv)
+                                            B.mv, axis=ctx.cfg.axis)
         W_A, W_B, Phi = solve_eig_adjoint(A, B, res, factor, lam_bar,
                                           Phi_bar, ctx.cfg, deflate=deflate)
         with torch.enable_grad():
@@ -454,10 +467,10 @@ def eigh_gen_tangent(theta, dtheta, problem, cfg, fwd=None):
     with torch.no_grad():
         if cfg.mode == "buckling":
             W = dBP + dAP * lam[None, :]  # W[:, i] = (dB + lam_i dA) phi_i
-            dlam = lam * torch.sum(Phi * W, dim=0)
+            dlam = lam * psum(torch.sum(Phi * W, dim=0), cfg.axis)
         else:
             W = dAP - dBP * lam[None, :]  # W[:, i] = (dA - lam_i dB) phi_i
-            dlam = torch.sum(Phi * W, dim=0)
+            dlam = psum(torch.sum(Phi * W, dim=0), cfg.axis)
         # as in JAX, a method the tangent has no use for (dl) solves by
         # sibk; pcpg runs without the deflation handling, as there
         method = cfg.adjoint_method
@@ -467,7 +480,7 @@ def eigh_gen_tangent(theta, dtheta, problem, cfg, fwd=None):
                                   tag="eigh_gen_tangent")
         # the repeated-cluster and diagonal part the projected solve cannot
         # carry: the symmetric -dB/2 coupling
-        dBG = Phi.T @ dBP
+        dBG = pdot(Phi.T, dBP, cfg.axis)
         close = torch.abs(lam[:, None] - lam[None, :]) < cfg.eig_atol
         Cd = torch.where(close, -0.5 * dBG, 0.0)
         dPhi = psi + Phi @ Cd

@@ -19,7 +19,7 @@ import warnings
 
 import torch
 
-from .collective import chunked_dot_f32, pdot
+from .collective import chunked_dot_f32, pdot, psum
 from .operators import as_operator
 from .sync import host_bool, loop_exit
 
@@ -112,27 +112,28 @@ class LanczosResult:
         return self.theta[self.order]
 
 
-def b_orthonormalize_rows(U0, B_mv):
+def b_orthonormalize_rows(U0, B_mv, axis=None):
     """B-orthonormalize a small set of row vectors (modified Gram-Schmidt).
 
-    U0 : (k, n) rows. Returns (U, BU) with U B-orthonormal.
+    U0 : (k, n) rows, DOF-sharded over ``axis``. Returns (U, BU) with U
+    B-orthonormal.
     """
     rows, brows = [], []
     for i in range(U0.shape[0]):
         u = U0[i]
         for v, bv in zip(rows, brows):
-            u = u - pdot(bv, u) * v
+            u = u - pdot(bv, u, axis) * v
         bu = B_mv(u)
-        nrm = torch.sqrt(pdot(u, bu))
+        nrm = torch.sqrt(pdot(u, bu, axis))
         rows.append(u / nrm)
         brows.append(bu / nrm)
     return torch.stack(rows), torch.stack(brows)
 
 
-def b_qr_tall(X, B_mv):
-    """B-orthonormal thin QR of an (n, p) block by column-scaled
-    CholeskyQR2 in the B inner product. Returns (Q, BQ, R) with
-    Q^T B Q = I and X = Q R.
+def b_qr_tall(X, B_mv, axis=None):
+    """B-orthonormal thin QR of an (n, p) block, DOF-sharded over
+    ``axis``, by column-scaled CholeskyQR2 in the B inner product (the Gram
+    matrix all-reduced). Returns (Q, BQ, R) with Q^T B Q = I and X = Q R.
 
     The (n, p) block is solved against L^T from the right as it lies: the
     left-sided solve of JAX on its (p, n) transpose is the same triangular
@@ -143,7 +144,7 @@ def b_qr_tall(X, B_mv):
         return torch.linalg.solve_triangular(L.T, Z, upper=True, left=False)
 
     def one_pass(X, BX):
-        G = X.T @ BX
+        G = psum(X.T @ BX, axis)
         G = 0.5 * (G + G.T)
         cn = torch.sqrt(torch.clamp(torch.diagonal(G), min=1e-300))
         Gs = G / (cn[:, None] * cn[None, :])
@@ -158,17 +159,17 @@ def b_qr_tall(X, B_mv):
     return Q, BQ, R2 @ R1
 
 
-def _deflator(deflate):
+def _deflator(deflate, axis=None):
     """Projector keeping a block B-orthogonal to the deflated rows (U, BU)
     (identity without deflation)."""
     if deflate is None:
         return lambda Wb: Wb
     U, BU = deflate
-    return lambda Wb: Wb - U.T @ (BU @ Wb)
+    return lambda Wb: Wb - U.T @ psum(BU @ Wb, axis)
 
 
 def polish_ritz_block(A, B, factor, lam, Phi, sigma, mode, deflate=None,
-                      nsteps=1):
+                      axis=None, nsteps=1):
     """Shift-invert subspace-iteration polish of the selected Ritz block,
     with a pencil Rayleigh-Ritz re-extraction.
 
@@ -180,7 +181,7 @@ def polish_ritz_block(A, B, factor, lam, Phi, sigma, mode, deflate=None,
     (lam, Phi, eig_res) with eig_res the measured pencil residual
     ||A phi - mu B phi|| of the returned pairs.
     """
-    defl = _deflator(deflate)
+    defl = _deflator(deflate, axis)
 
     mv_warm = getattr(factor, "mv_warm", None)
     for _ in range(nsteps):
@@ -193,9 +194,9 @@ def polish_ritz_block(A, B, factor, lam, Phi, sigma, mode, deflate=None,
             Z = mv_warm(B.mv(Phi), Phi * scale[None, :])
         else:
             Z = factor.mv(B.mv(Phi))
-        Z, BZ, _ = b_qr_tall(defl(Z), B.mv)
+        Z, BZ, _ = b_qr_tall(defl(Z), B.mv, axis)
         AZ = A.mv(Z)
-        Hp = Z.T @ AZ  # (N, N); Z^T B Z = I
+        Hp = psum(Z.T @ AZ, axis)  # (N, N); Z^T B Z = I
         Hp = 0.5 * (Hp + Hp.T)
         mu, Wp = torch.linalg.eigh(Hp)
         order = torch.argsort(mu, stable=True)
@@ -209,7 +210,7 @@ def polish_ritz_block(A, B, factor, lam, Phi, sigma, mode, deflate=None,
         mu_sel = mu[order]
         Phi = Z @ Wsel
     R = AZ @ Wsel - (BZ @ Wsel) * mu_sel[None, :]
-    eig_res = torch.sqrt(torch.sum(R * R, dim=0))
+    eig_res = torch.sqrt(psum(torch.sum(R * R, dim=0), axis))
     return lam, Phi, eig_res
 
 
@@ -220,8 +221,8 @@ def _uniform_block(n, p, seed, dtype, device):
 
 
 def _block_lanczos_setup(A, B, factor, sigma, N, m, p, mode="normal",
-                         seed=12345, v0=None, deflate=None, ortho="full",
-                         sweep="exact"):
+                         seed=12345, v0=None, deflate=None, axis=None,
+                         ortho="full", sweep="exact"):
     """Block-Lanczos machinery: the per-step function and the initial
     state. ``step(t, s)`` advances block t of the state ``s`` in place."""
     del mode  # the same recurrence in every mode
@@ -253,10 +254,10 @@ def _block_lanczos_setup(A, B, factor, sigma, N, m, p, mode="normal",
         extra = _uniform_block(n, p - 1, seed + 1, dtype, device)
         v0 = torch.cat([v0[:, None], extra], dim=1)
 
-    defl = _deflator(deflate)
+    defl = _deflator(deflate, axis)
 
     rows = (q + 1) * p
-    Q0, BQ0, _ = b_qr_tall(defl(v0), B.mv)
+    Q0, BQ0, _ = b_qr_tall(defl(v0), B.mv, axis)
     s = types.SimpleNamespace()
     s.V = torch.zeros((rows, n), dtype=dtype, device=device)
     s.BV = torch.zeros((rows, n), dtype=dtype, device=device)
@@ -281,11 +282,11 @@ def _block_lanczos_setup(A, B, factor, sigma, N, m, p, mode="normal",
         w = apply_fn(s.BV[lo:lo + p].T)  # (n, p) blocked apply
         if local:
             # merged measurement: [RR column | Gram column] of block t
-            hg = s.BV @ torch.cat([w, s.V[lo:lo + p].T], dim=1)
+            hg = psum(s.BV @ torch.cat([w, s.V[lo:lo + p].T], dim=1), axis)
             s.Hraw[:, lo:lo + p] = hg[:, :p]
             s.Graw[:, lo:lo + p] = hg[:, p:]
         else:
-            s.Hraw[:, lo:lo + p] = s.BV @ w
+            s.Hraw[:, lo:lo + p] = psum(s.BV @ w, axis)
         w = defl(w)
         if local:
             # three-term recurrence against the previous two blocks, plus
@@ -294,26 +295,26 @@ def _block_lanczos_setup(A, B, factor, sigma, N, m, p, mode="normal",
             lo2 = max(lo - p, 0)
             Vp = s.V[lo2:lo2 + 2 * p]
             BVp = s.BV[lo2:lo2 + 2 * p]
-            h1l = BVp @ w
+            h1l = psum(BVp @ w, axis)
             w = w - Vp.T @ h1l
-            h2l = BVp @ w
+            h2l = psum(BVp @ w, axis)
             w = w - Vp.T @ h2l
             h = torch.zeros((rows, p), dtype=dtype, device=device)
             h[lo2:lo2 + 2 * p] = h1l + h2l
             mask64 = (col < lo + p).to(dtype)
-            hfar = chunked_dot_f32(s.BV32, w) * mask64[:, None]
+            hfar = chunked_dot_f32(s.BV32, w, axis) * mask64[:, None]
             w = w - (s.V32.T @ hfar.to(torch.float32)).to(dtype)
-            hfar2 = chunked_dot_f32(s.BV32, w) * mask64[:, None]
+            hfar2 = chunked_dot_f32(s.BV32, w, axis) * mask64[:, None]
             w = w - (s.V32.T @ hfar2.to(torch.float32)).to(dtype)
         else:
             mask = (col < lo + p).to(dtype)
-            h1 = (s.BV @ w) * mask[:, None]
+            h1 = psum(s.BV @ w, axis) * mask[:, None]
             w = w - s.V.T @ h1
-            h2 = (s.BV @ w) * mask[:, None]
+            h2 = psum(s.BV @ w, axis) * mask[:, None]
             w = w - s.V.T @ h2
             h = h1 + h2
         w = defl(w)
-        Qb, BQb, Rb = b_qr_tall(w, B.mv)
+        Qb, BQb, Rb = b_qr_tall(w, B.mv, axis)
         s.V[lo + p:lo + 2 * p] = Qb.T
         s.BV[lo + p:lo + 2 * p] = BQb.T
         if local:
@@ -327,7 +328,7 @@ def _block_lanczos_setup(A, B, factor, sigma, N, m, p, mode="normal",
 
 def _block_lanczos_extract(A, B, factor, sigma, N, mode, s, niter, p,
                            guard_tiny0, ortho, polish, polish_spare,
-                           deflate, measure=False):
+                           deflate, measure=False, axis=None):
     """Rayleigh-Ritz extraction tail of the block Lanczos solve (symmetric
     completion, Gram Rayleigh-Ritz, selection, residual bound, polish or,
     with ``measure``, the measured pencil residual)."""
@@ -399,12 +400,12 @@ def _block_lanczos_extract(A, B, factor, sigma, N, mode, s, niter, p,
             Phi_e = V[:mtot].T @ Y[:, sel_e]
             lam_e, Phi_e, res_e = polish_ritz_block(
                 A, B, factor, lam_e, Phi_e, sigma, mode, deflate=deflate,
-                nsteps=polish)
+                axis=axis, nsteps=polish)
             lam, Phi, eig_res = lam_e[:N], Phi_e[:, :N], res_e[:N]
         else:
             lam, Phi, eig_res = polish_ritz_block(
                 A, B, factor, lam, Phi, sigma, mode, deflate=deflate,
-                nsteps=polish)
+                axis=axis, nsteps=polish)
         eig_res_measured = eig_res
     elif measure:
         # the true pencil residual ||A phi - mu B phi|| of the returned
@@ -416,7 +417,7 @@ def _block_lanczos_extract(A, B, factor, sigma, N, mode, s, niter, p,
         else:
             mu = lam
         R = A.mv(Phi) - B.mv(Phi) * mu[None, :]
-        eig_res_measured = torch.sqrt(torch.sum(R * R, dim=0))
+        eig_res_measured = torch.sqrt(psum(torch.sum(R * R, dim=0), axis))
 
     zeros_m = torch.zeros(mtot, dtype=dtype, device=device)
     return LanczosResult(
@@ -427,7 +428,8 @@ def _block_lanczos_extract(A, B, factor, sigma, N, mode, s, niter, p,
 
 
 def block_lanczos_solve(A, B, factor, sigma, N, m, p, mode="normal",
-                        seed=12345, v0=None, deflate=None, tol=None,
+                        seed=12345, v0=None, deflate=None, axis=None,
+                        tol=None,
                         check_every=1, ortho="full", polish=0,
                         polish_spare=0, sweep="exact",
                         measure_res=False) -> LanczosResult:
@@ -443,11 +445,13 @@ def block_lanczos_solve(A, B, factor, sigma, N, m, p, mode="normal",
     the normal map only: outside the normal mode the sweep runs all
     blocks, as in JAX. ``measure_res`` (without polish) measures the true
     pencil residual of the returned pairs into ``eig_res_measured``, two
-    thin operator applies that change nothing else.
+    thin operator applies that change nothing else. With ``axis`` the DOF
+    dimension is sharded over its ranks: every basis product is
+    all-reduced, and the exit reads the replicated coupling matrix only.
     """
     A, B = as_operator(A), as_operator(B)
     st = _block_lanczos_setup(A, B, factor, sigma, N, m, p, mode=mode,
-                              seed=seed, v0=v0, deflate=deflate,
+                              seed=seed, v0=v0, deflate=deflate, axis=axis,
                               ortho=ortho, sweep=sweep)
     step, q, mtot, s = st.step, st.q, st.mtot, st.state
     if tol is None or mode != "normal":
@@ -483,7 +487,7 @@ def block_lanczos_solve(A, B, factor, sigma, N, m, p, mode="normal",
         niter = t * p
     return _block_lanczos_extract(
         A, B, factor, sigma, N, mode, s, niter, p, tol is not None, ortho,
-        polish, polish_spare, deflate, measure=measure_res)
+        polish, polish_spare, deflate, measure=measure_res, axis=axis)
 
 
 # ---------------------------------------------------------------------------
@@ -491,8 +495,8 @@ def block_lanczos_solve(A, B, factor, sigma, N, m, p, mode="normal",
 # ---------------------------------------------------------------------------
 
 
-def lanczos_iteration(factor_mv, B_mv, v0, m, deflate=None, tol=None,
-                      nwanted=None, check_every=8, min_iter=None,
+def lanczos_iteration(factor_mv, B_mv, v0, m, deflate=None, axis=None,
+                      tol=None, nwanted=None, check_every=8, min_iter=None,
                       apply_op=None):
     """Up to m shift-invert Lanczos steps on ``factor(B v)`` with full
     B-orthogonalization (CGS2 against the cached B V rows).
@@ -506,7 +510,9 @@ def lanczos_iteration(factor_mv, B_mv, v0, m, deflate=None, tol=None,
     ``nwanted`` largest-theta pairs satisfy
     ``|beta_i Y[i-1, j]| < tol * max(|theta|, 1)``: one host decision per
     check, counted in ``sync.HOST_SYNCS["lanczos1_exit"]``. A breakdown
-    (||w||_B^2 <= 1e-60) freezes the recurrence with zero rows.
+    (||w||_B^2 <= 1e-60) freezes the recurrence with zero rows. With
+    ``axis`` the vectors are DOF-sharded and every inner product is
+    all-reduced, so alpha, beta and each exit decision are replicated.
 
     Returns (V, BV, alpha, beta, W_raw, niter): the (m+1, n) basis and its
     B products (rows from niter on are zero), the coefficients, the (m, n)
@@ -515,11 +521,11 @@ def lanczos_iteration(factor_mv, B_mv, v0, m, deflate=None, tol=None,
     n = v0.shape[0]
     dtype = v0.dtype
     device = v0.device
-    defl = _deflator(deflate)
+    defl = _deflator(deflate, axis)
 
     v0 = defl(v0)
     bv0 = B_mv(v0)
-    b0 = torch.sqrt(pdot(v0, bv0))
+    b0 = torch.sqrt(pdot(v0, bv0, axis))
     V = torch.zeros((m + 1, n), dtype=dtype, device=device)
     BV = torch.zeros((m + 1, n), dtype=dtype, device=device)
     V[0] = v0 / b0
@@ -534,14 +540,14 @@ def lanczos_iteration(factor_mv, B_mv, v0, m, deflate=None, tol=None,
         W_raw[i] = w
         mask = (col <= i).to(dtype)
         w = defl(w)
-        h1 = (BV @ w) * mask
+        h1 = pdot(BV, w, axis) * mask
         w = w - V.T @ h1
-        h2 = (BV @ w) * mask
+        h2 = pdot(BV, w, axis) * mask
         w = w - V.T @ h2
         w = defl(w)
         h = h1 + h2
         bw = B_mv(w)
-        b2 = pdot(w, bw)
+        b2 = pdot(w, bw, axis)
         ok = b2 > 1e-60
         b = torch.sqrt(torch.where(ok, b2, 1.0))
         keep = ok.to(dtype)
@@ -588,7 +594,7 @@ def lanczos_iteration(factor_mv, B_mv, v0, m, deflate=None, tol=None,
 
 
 def lanczos_solve(A, B, factor, sigma, N, m, mode="normal", seed=12345,
-                  v0=None, deflate=None, tol=None, check_every=8,
+                  v0=None, deflate=None, axis=None, tol=None, check_every=8,
                   polish=0) -> LanczosResult:
     """Single-vector shift-invert Lanczos: the N smallest eigenpairs.
 
@@ -603,7 +609,7 @@ def lanczos_solve(A, B, factor, sigma, N, m, mode="normal", seed=12345,
     (A + sigma B) (ARPACK's mode 5): ``factor`` is the normal-mode one.
     With v0=None the start vector is drawn from a ``torch.Generator``
     seeded with ``seed`` (JAX draws from ``jax.random``: parity runs pass
-    v0).
+    v0). With ``axis`` the DOF dimension is sharded over its ranks.
     """
     if mode != "normal":
         tol = None
@@ -618,9 +624,9 @@ def lanczos_solve(A, B, factor, sigma, N, m, mode="normal", seed=12345,
         def apply_op(v, bv):
             return factor.mv(A.mv(v) + sigma * bv)
     V, BV, alpha, beta, W_raw, niter = lanczos_iteration(
-        factor.mv, B.mv, v0, m, deflate=deflate, tol=tol, nwanted=N,
-        check_every=check_every, apply_op=apply_op)
-    Hf = BV[:m] @ W_raw.T
+        factor.mv, B.mv, v0, m, deflate=deflate, axis=axis, tol=tol,
+        nwanted=N, check_every=check_every, apply_op=apply_op)
+    Hf = psum(BV[:m] @ W_raw.T, axis)
     H = 0.5 * (Hf + Hf.T)
     theta, Y = torch.linalg.eigh(H)
     if tol is not None:
@@ -641,7 +647,7 @@ def lanczos_solve(A, B, factor, sigma, N, m, mode="normal", seed=12345,
     if polish:
         lam, Phi, eig_res = polish_ritz_block(A, B, factor, lam, Phi, sigma,
                                               mode, deflate=deflate,
-                                              nsteps=polish)
+                                              axis=axis, nsteps=polish)
     return LanczosResult(
         lam=lam, Phi=Phi, V=V, BV=BV, alpha=alpha, beta=beta, H=H,
         theta=theta, Y=Y, order=order, lam_all=lam_all, eig_res=eig_res,

@@ -300,3 +300,29 @@ def test_solver_surface_on_card_matches_cpu():
     assert np.abs(gpu[0] - cpu[0]).max() <= 1e-8 * np.abs(cpu[0]).max()
     for g, c in zip(gpu[1:], cpu[1:]):
         np.testing.assert_allclose(g, c, rtol=1e-9, atol=1e-10)
+
+
+def sharded_nf(device):
+    """The sharded NF objective (mg factor, 32x16, N 2, m 40, pcpg
+    adjoint) at world 1 on ``device``: value and gradient."""
+    from eigd_tpu_torch.parallel import launch, runs
+
+    kw = dict(nx=32, ny=16, N=2, m=40, factor="mg", adjoint_method="pcpg",
+              adjoint_maxiter=200)
+    with launch.local_axis(device) as axis:
+        r = runs.objective(axis, "nf", kw)
+    return r["value"], r["grad"].detach().cpu().numpy()
+
+
+def test_sharded_objective_on_card_matches_cpu():
+    """The sharded NF objective at world 1 (NCCL on the card, K1/K2 in
+    its V-cycle and outer PCG) against the same objective on the CPU
+    (gloo, the kernels' twins): value rel 1e-9, gradient 1e-7 of its
+    largest entry."""
+    require_cuda()
+    v_c, g_c = sharded_nf("cpu")
+    k1, k2 = cs.K1_LAUNCHES, cs.K2_LAUNCHES
+    v_g, g_g = sharded_nf("cuda")
+    assert cs.K1_LAUNCHES > k1 and cs.K2_LAUNCHES > k2
+    assert abs(v_g - v_c) <= 1e-9 * abs(v_c)
+    assert np.abs(g_g - g_c).max() <= 1e-7 * np.abs(g_c).max()

@@ -112,7 +112,11 @@ def test_port_imports_no_jax():
             "eigd_tpu_torch.examples.natural_frequency, "
             "eigd_tpu_torch.examples.thermal, "
             "eigd_tpu_torch.examples.buckling, "
-            "eigd_tpu_torch.examples.crm, chip_smoke; "
+            "eigd_tpu_torch.examples.crm, eigd_tpu_torch.parallel, "
+            "eigd_tpu_torch.parallel.grid, eigd_tpu_torch.parallel.launch, "
+            "eigd_tpu_torch.parallel.sharded, "
+            "eigd_tpu_torch.parallel.mgshard, eigd_tpu_torch.parallel.runs, "
+            "eigd_tpu_torch.graft_entry, chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'eigd_tpu.')) or m == 'eigd_tpu']; "
             "assert not bad, bad")
