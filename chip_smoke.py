@@ -56,6 +56,13 @@ then drives these paths:
   998,712 padded DOF (``[crm1m]``) on JAX's defaults and on f64 ``bcr``,
   jvp-vs-vjp held on the latter.
 
+Right after ``[main]``, ``[surface]`` drives the rest of the public
+surface on the same 263k model: ``factor(x)`` and ``op(x)`` against
+their ``mv`` (bitwise, the same K1/K2 launches), the sharded stencil's
+gradient under ``launch.local_axis()`` with no device (NCCL) against the
+CPU's, ``launch.run`` with no device, the Dirichlet-reduction helpers on
+the 24x12 buckling flow and ``detJ_tables`` at 512x256.
+
 Beside these: ``EighGenConfig.measure_eig_res`` on the 263k model at
 polish 0 (``[measure]``: the measured pencil residual against one
 recomputed on K2, the solve unmoved by the flag); the Cayley map of
@@ -80,7 +87,8 @@ difference.
 Each phase's wall time is printed as ``[time]``.
 
 Usage: ``python3 chip_smoke.py`` from the root of the repository, on a
-machine with one CUDA GPU and nvcc. It exits non-zero, printing no result,
+machine with one CUDA GPU and nvcc (``python3 chip_smoke.py surface``
+builds the kernels and runs ``[surface]`` alone, without the JSON lines). It exits non-zero, printing no result,
 when there is no GPU or the package is missing, and on any failed phase.
 The last line of standard output is the JSON contract line
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -204,7 +212,7 @@ def phase_stencils(topo, fine_ks, coarse_ks, k2_ks, gen, extra=()):
     K1 on every MG level of its factor (fine_ks columns at the finest
     level, coarse_ks below), on the vector layout at the finest, and on
     the extra (W, nx, ny, ndof, k) cases; K2 on A - sigma B. Returns the
-    rows by name."""
+    rows by name, and the operators and factor (A, B, factor)."""
     from eigd_tpu_torch.fem.assembly import element_density
 
     with torch.no_grad():
@@ -219,7 +227,7 @@ def phase_stencils(topo, fine_ks, coarse_ks, k2_ks, gen, extra=()):
     k1_vector_layout(fac.Ws[0], *fac.shapes[0], gen)
     nx, ny = fac.shapes[0]
     rows += [k2_row(A.W - topo.sigma * B.W, nx, ny, k, gen) for k in k2_ks]
-    return {r["name"]: r for r in rows}
+    return {r["name"]: r for r in rows}, (A, B, fac)
 
 
 def random_stencils(gen):
@@ -484,6 +492,165 @@ def phase_main(topo, gpu):
     pert = bench_direction(topo)
     fd_check(topo, g, pert, 1e-4, "main")
     return launches, val, float(pert @ g)
+
+
+def surface_calls(A, fac, gen, device):
+    """factor(x) against factor.mv(x) and the stiffness stencil's op(x)
+    against op.mv(x) on one f64 (n, 16) block: bitwise, with the same
+    K1/K2 launches; FactorCounter(factor).shape."""
+    from eigd_tpu_torch.utils.profile import FactorCounter
+
+    n = fac.shape[0]
+    x = torch.randn((n, 16), generator=gen, dtype=torch.float64).to(device)
+    op = A.with_kernels()
+    for name, f in (("GridMGFactor", fac), ("GridStencilOperator", op)):
+        out, used = [], []
+        for call in (f, f.mv):
+            before = launches_now()
+            out.append(call(x))
+            sync_device(device)
+            used.append({k: v - before[k] for k, v in launches_now().items()})
+        log(f"[surface] {name} ({n} DOF, k 16): call vs mv bitwise "
+            f"{torch.equal(*out)}, launches {used[0]} and {used[1]}")
+        check(torch.equal(*out), f"[surface] {name}(x) is not its mv(x)")
+        check(used[0] == used[1], f"[surface] {name}(x) launched other "
+                                  "kernels than its mv(x)")
+    shape = FactorCounter(fac).shape
+    log(f"[surface] FactorCounter(GridMGFactor).shape {shape}")
+    check(shape == (n, n), "[surface] FactorCounter shape")
+
+
+def surface_stencil_grad(fac, gen, axis, device):
+    """The sharded stencil's gradient (psum <w, A x> in the replicated
+    stencil and in x; k 3) at the sharded NF's 512x256 line partition on
+    ``axis`` against the same on the CPU through a gloo group of this
+    process: 1e-12 of the largest entry. Then the no-grad call launches K2
+    (on the card) and agrees with the plain version to 1e-12."""
+    import torch.distributed as dist
+
+    from eigd_tpu_torch.ops import cuda_stencil as cs
+    from eigd_tpu_torch.ops.collective import Axis
+    from eigd_tpu_torch.parallel.grid import make_partition
+    from eigd_tpu_torch.parallel.mgshard import sharded_stencil_matvec
+    from eigd_tpu_torch.parallel.runs import stencil_gradient
+
+    nx, ny = fac.shapes[0]
+    part = make_partition(nx, ny, axis.size, ndof=2, multiple=4)
+    W = fac.W64.new_zeros((part.L,) + tuple(fac.W64.shape[1:]))
+    W[:part.nlines] = fac.W64
+    x, w = (torch.randn((part.n_local, 3), generator=gen,
+                        dtype=torch.float64) for _ in range(2))
+    group = dist.new_group([0], backend="gloo")
+    try:
+        host = Axis(group, "cpu")
+        got = stencil_gradient(axis, W, x.to(device), w.to(device), part)
+        ref = stencil_gradient(host, W.cpu(), x, w, part)
+        with torch.no_grad():
+            plain = sharded_stencil_matvec(W.cpu(), x, part.L, part.nlines,
+                                           ny, 2, host)
+    finally:
+        dist.destroy_process_group(group)
+    errs = [float((g.cpu() - r).abs().max() / r.abs().max())
+            for g, r in zip(got[1:], ref[1:])]
+    k2 = cs.K2_LAUNCHES
+    with torch.no_grad():
+        y = sharded_stencil_matvec(W, x.to(device), part.L, part.nlines, ny,
+                                   2, axis)
+    sync_device(device)
+    k2 = cs.K2_LAUNCHES - k2
+    err = float((y.cpu() - plain).abs().max() / plain.abs().max())
+    log(f"[surface] sharded stencil gradient on {axis.backend} {axis.device} "
+        f"({part.nlines} lines, L {part.L}, k 3) vs the CPU (gloo): W rel "
+        f"{errs[0]:.3e}, x rel {errs[1]:.3e} (bound 1e-12); no-grad call: "
+        f"K2 launches {k2}, vs plain rel {err:.3e} (bound 1e-12)")
+    check(max(errs) <= 1e-12, "[surface] the sharded stencil's gradient "
+                              "disagrees with the CPU's")
+    check(err <= 1e-12, "[surface] the no-grad sharded stencil disagrees "
+                        "with the plain version")
+    if torch.device(device).type == "cuda":
+        check(k2 == 1, "[surface] the no-grad sharded stencil did not "
+                       "launch K2")
+
+
+def surface_helpers(topo, device):
+    """reduce_operator_dense / reduce_vector / expand_vector against the
+    buckling model's own reduction at 24x12 (bitwise), the expansion zero
+    exactly on the fixed DOFs; detJ_tables on the 512x256 mesh against
+    the CPU, within the rounding bound of its formula there: each entry of
+    J is a 4-term dot product of coordinates up to max|X| with weights of
+    +-1/4 that cancels to about an edge, sqrt(detJ), so it carries a
+    relative error up to 4u max|X| / sqrt(detJ) (u the f64 unit
+    roundoff), detJ twice that, on each side of the comparison: 16u
+    max|X| / sqrt(min detJ), 1.8e-12 on the 2 x 1 mesh at h 1/256."""
+    from eigd_tpu_torch.fem.assembly import element_density
+    from eigd_tpu_torch.fem.quad import detJ_tables
+    from eigd_tpu_torch.models.buckling import make_buckling_model
+    from eigd_tpu_torch.ops.operators import (expand_vector,
+                                              reduce_operator_dense,
+                                              reduce_vector)
+
+    bk = make_buckling_model(nx=24, ny=12, N=4, sigma=1.0, device=device)
+    free, n = bk.free, bk.nvars
+    with torch.no_grad():
+        rhoE = element_density(bk.fltr.apply(bk.x), bk.conn)
+        Kr = reduce_operator_dense(bk._K_mats(rhoE), free).mat
+        own = bk._stiffness_dense_reduced(rhoE)
+    v = torch.linspace(1.0, 2.0, n, dtype=torch.float64, device=device)
+    vr = reduce_vector(v, free)
+    ve = expand_vector(vr, free, n)
+    fixed = bk.fixed_mask > 0
+    same = {"K": torch.equal(Kr, own),
+            "f": torch.equal(reduce_vector(bk.f, free), bk.f[free]),
+            "expand": torch.equal(ve, vr.new_zeros(n).index_put((free,),
+                                                                  vr))}
+    zero = bool((ve[fixed] == 0.0).all()) and torch.equal(ve[~fixed],
+                                                          v[~fixed])
+    dj = detJ_tables(topo.X, topo.conn)
+    dc = detJ_tables(topo.X.cpu(), topo.conn.cpu())
+    rel = float((dj.cpu() - dc).abs().max() / dc.abs().max())
+    bound = 16 * (torch.finfo(torch.float64).eps / 2) * float(
+        topo.X.abs().max().cpu() / dc.abs().min().sqrt())
+    log(f"[surface] reduction helpers on the 24x12 buckling flow ({n} DOF, "
+        f"{int(fixed.sum())} fixed): bitwise {same}, expansion zero on the "
+        f"fixed DOFs {zero}; detJ_tables {tuple(dj.shape)} vs CPU rel "
+        f"{rel:.3e} (bound {bound:.3e})")
+    check(all(same.values()), "[surface] a reduction helper differs from "
+                              "the buckling flow's own")
+    check(zero, "[surface] expand_vector(reduce_vector(v)) is not zero "
+                "exactly on the fixed DOFs")
+    check(rel <= bound, "[surface] detJ_tables disagrees with the CPU")
+
+
+def phase_surface(gpu, topo, ops, gen, device="cuda"):
+    """The last public surface on [main]'s 512x256 model (263,682 DOF),
+    its stiffness stencil and mg factor as [stencils] built them: calls
+    (``surface_calls``); the sharded stencil's gradient under
+    ``launch.local_axis()`` with no device, NCCL at world 1
+    (``surface_stencil_grad``); ``launch.run(placement, 1)`` with no
+    device, a CUDA device and NCCL inside the rank; the BC-reduction
+    helpers and detJ_tables (``surface_helpers``). A device other than
+    "cuda" (a CPU rehearsal) is passed to the launcher. Returns the K1/K2
+    launches of the phase."""
+    from eigd_tpu_torch.parallel import launch, runs
+
+    A, _, fac = ops
+    at = {} if device == "cuda" else {"device": device}
+    counters_zero(device)
+    t0 = time.perf_counter()
+    surface_calls(A, fac, gen, device)
+    with launch.local_axis(**at) as axis:
+        surface_stencil_grad(fac, gen, axis, device)
+    (rank,) = launch.run(runs.placement, 1, **at, timeout=120.0)
+    want = "nccl" if device == "cuda" else "gloo"
+    log(f"[surface] launch.run with no device: rank sees {rank}")
+    check(rank["backend"] == want and rank["psum"] == 1.0
+          and rank["device"].startswith(torch.device(device).type),
+          "[surface] launch.run did not run on the card")
+    surface_helpers(topo, device)
+    launches = launches_now()
+    log(f"[surface] {time.perf_counter() - t0:.2f} s  K1 launches "
+        f"{launches['K1']}  K2 launches {launches['K2']} on {gpu}")
+    return launches
 
 
 def sync_device(device):
@@ -787,7 +954,7 @@ def phase_1m(gpu, gen):
     topo = make_model(device="cuda", **bench_1m())
     log(f"[1m] model built in {time.perf_counter() - t0:.2f} s "
         f"({before / 2**30:.3f} GiB allocated before it)")
-    rows = phase_stencils(topo, (1, 6, 8, 16), (8,), (1, 6, 8, 16), gen)
+    rows, _ = phase_stencils(topo, (1, 6, 8, 16), (8,), (1, 6, 8, 16), gen)
     g, val, launches = evaluate(topo, gpu, "1m")
     pert = bench_direction(topo)
     ans = float(pert @ g)
@@ -2132,15 +2299,27 @@ def main():
 
     phase("build", phase_build)
     topo = make_model(device="cuda", **bench_263k())
+    if sys.argv[1:] == ["surface"]:
+        # [surface] alone, on the operators and factor of the model at x0
+        with torch.no_grad():
+            A, B = topo.problem.assemble(element_density_of(topo))
+            fac = topo.problem.factor(A, B, topo.sigma, "normal")
+        phase("surface", phase_surface, gpu, topo, (A, B, fac),
+              torch.Generator().manual_seed(11))
+        log(f"[total] {time.perf_counter() - t_start:.1f} s")
+        return 0
     gen = torch.Generator().manual_seed(0)
     timed, ragged = random_stencils(gen)
-    s263 = phase("stencils", phase_stencils, topo, (1, 16), (1, 16),
-                 (1, 6, 16), gen, timed)
+    s263, ops263 = phase("stencils", phase_stencils, topo, (1, 16),
+                         (1, 16), (1, 6, 16), gen, timed)
     phase("ragged", phase_ragged, ragged, gen)
     host = phase("K1 host", phase_host)
     probe_rows, probe_launches = phase("probes", phase_probes)
     phase("on/off", phase_on_off)
     l263, val_main, proj_main = phase("main", phase_main, topo, gpu)
+    lsf = phase("surface", phase_surface, gpu, topo, ops263,
+                torch.Generator().manual_seed(11))
+    del ops263
     lmf = phase("minfreq", phase_minfreq, topo, gpu)
     lme = phase("measure", phase_measure, topo, gpu)
     del topo
@@ -2175,7 +2354,7 @@ def main():
     torch.cuda.empty_cache()
     from eigd_tpu_torch.parallel import launch
 
-    with launch.local_axis("cuda") as axis:
+    with launch.local_axis() as axis:
         lsh1, ssh1 = phase("sharded1", phase_sharded1, gpu, gen, axis)
         gc.collect()
         torch.cuda.empty_cache()
@@ -2192,6 +2371,7 @@ def main():
                      "eigd_tpu/ops/pallas_stencil.py:121", l1m["K1"],
                      s263["K1 513x257 ndof 2 k 16"],
                      launches_by_path={"263k": l263["K1"], "1m": l1m["K1"],
+                                       "surface": lsf["K1"],
                                        "minfreq": lmf["K1"],
                                        "thermal1m": lth["K1"],
                                        "measure": lme["K1"],
@@ -2212,6 +2392,7 @@ def main():
                      "eigd_tpu/ops/pallas_stencil.py:299", l1m["K2"],
                      s263["K2 513x257 ndof 2 k 16"],
                      launches_by_path={"263k": l263["K2"], "1m": l1m["K2"],
+                                       "surface": lsf["K2"],
                                        "minfreq": lmf["K2"],
                                        "thermal1m": lth["K2"],
                                        "measure": lme["K2"],

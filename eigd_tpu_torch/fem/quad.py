@@ -2,7 +2,8 @@
 
 Counterpart of ``eigd_tpu/fem/quad.py`` (the plane-stress tables, the
 geometric-stiffness tables of buckling and the scalar tables of the
-Helmholtz filter and the thermal model). Element DOF ordering is
+Helmholtz filter and the thermal model, and the Jacobian determinants
+alone). Element DOF ordering is
 [ux0, uy0, ux1, uy1, ...]; the plane-stress quadrature-point index is
 2*i + j over GAUSS[i], GAUSS[j], the scalar one 2*j + i.
 """
@@ -142,3 +143,11 @@ def thermal_tables(X, conn):
             He_list.append(N[None, :].expand(nelems, 4))
             dJ_list.append(detJ)
     return torch.stack(Be_list), torch.stack(He_list), torch.stack(dJ_list)
+
+
+def detJ_tables(X, conn):
+    """detJ at every quadrature point of ``quad_points()``: (nq, nelems)."""
+    xe = X[conn, 0]
+    ye = X[conn, 1]
+    return torch.stack([_grads(xe, ye, xi, eta)[3]
+                        for xi, eta in quad_points()])

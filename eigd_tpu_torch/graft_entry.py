@@ -22,20 +22,14 @@ import numpy as np
 import torch
 
 
-def _require(device):
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} asked for, but no CUDA device is available "
-            "(pass device='cpu' to run on the CPU)")
-
-
 def entry(device="cuda"):
     """Forward step of the flagship model: natural-frequency topology
     analysis (filter -> FE assembly -> shift-invert Lanczos) on the 32x16
     grid. Returns (forward, (x0,)) with forward(x) -> (lam, Phi)."""
     from .models.natural_frequency import make_model
+    from .parallel.launch import require
 
-    _require(device)
+    require(device)
     topo = make_model(nx=32, ny=16, Lx=2.0, Ly=1.0, N=6, rfact=2.0,
                       device=device)
     x0 = topo.x.detach().clone()
@@ -92,7 +86,6 @@ def dryrun_multichip(n_devices: int, device="cuda", timeout=900.0):
     two lines of JAX's dry run and returns rank 0's results."""
     from .parallel import launch
 
-    _require(device)
     out = launch.run(dryrun_rank, n_devices, device=device,
                      timeout=timeout)[0]
     if not (np.isfinite(out["objective"]) and np.all(np.isfinite(out["x1"]))):

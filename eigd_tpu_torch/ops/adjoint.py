@@ -90,6 +90,10 @@ def generate_adjoint_correction(lam, Phi, psi, G=None, Phib=None,
     return psi, EigCorrection(Xi=Xi, Eta=Eta)
 
 
+# JAX's other name for it (eigd_tpu/ops/adjoint.py:134)
+apply_adjoint_correction = generate_adjoint_correction
+
+
 # ---------------------------------------------------------------------------
 # Total derivative assembly
 # ---------------------------------------------------------------------------
@@ -177,13 +181,14 @@ def eval_adjoint_residual_norm(A, B, lam, Phi, Phib, psi, mode="normal",
 # ---------------------------------------------------------------------------
 
 
-def laa(Phib, B, factor, res: LanczosResult, b_ortho=False, mode="normal",
-        approx=False, axis=None):
+def laa(Phib, B, factor, res: LanczosResult, D0=None, b_ortho=False,
+        mode="normal", axis=None, approx=False):
     """Galerkin solution of the adjoint equations in the Lanczos subspace:
 
     D[i, j] = (Ys_i . Yb_j) / (theta_j - theta_i) (masked), then
     psi = -factor(B V (Ys (D * scale))),  scale = 1/(lam - sigma), or
-    sigma/(lam - sigma) in buckling mode.
+    sigma/(lam - sigma) in buckling mode. ``D0``, an (m, N) matrix, is
+    taken in place of the masked D when given.
     """
     B = as_operator(B)
     m = res.m
@@ -194,16 +199,19 @@ def laa(Phib, B, factor, res: LanczosResult, b_ortho=False, mode="normal",
     lam = res.lam[:N]
     sigma = res.sigma
 
-    C = Ys.T @ pdot(V, Phib, axis)  # (m, N)
-    denom = theta_s[None, :N] - theta_s[:, None]
-    rows = torch.arange(m, device=V.device)[:, None]
-    cols = torch.arange(N, device=V.device)[None, :]
-    mask = (rows >= N) if b_ortho else (rows != cols)
-    ok = mask & (denom != 0.0)
-    D = torch.where(ok, C / torch.where(ok, denom, 1.0), 0.0)
-    # directions never measured carry theta = 0: zero their rows
-    good = torch.abs(theta_s) > 1e-12 * torch.max(torch.abs(theta_s))
-    D = D * good[:, None]
+    if D0 is not None:
+        D = D0
+    else:
+        C = Ys.T @ pdot(V, Phib, axis)  # (m, N)
+        denom = theta_s[None, :N] - theta_s[:, None]
+        rows = torch.arange(m, device=V.device)[:, None]
+        cols = torch.arange(N, device=V.device)[None, :]
+        mask = (rows >= N) if b_ortho else (rows != cols)
+        ok = mask & (denom != 0.0)
+        D = torch.where(ok, C / torch.where(ok, denom, 1.0), 0.0)
+        # directions never measured carry theta = 0: zero their rows
+        good = torch.abs(theta_s) > 1e-12 * torch.max(torch.abs(theta_s))
+        D = D * good[:, None]
     if mode == "normal":
         scale = 1.0 / (lam - sigma)
     elif mode == "buckling":
@@ -413,8 +421,8 @@ def _sibk_setup(Phib, A, B, lam, Phi, mode="normal", sigma=None,
 
 def sibk(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
          factor=None, rtol=1e-10, atol=1e-30, eig_atol=1e-5, maxiter=50,
-         nrestart=2, check_every=3, mixed=False, ladder="approx",
-         axis=None):
+         nrestart=2, check_every=3, bs_target=None, update_guess=None,
+         callback=None, axis=None, mixed=False, ladder="approx"):
     """Shift-invert block Krylov adjoint solver.
 
     One shared Krylov space per round for all N right-hand sides; the N
@@ -424,9 +432,15 @@ def sibk(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
     or when a round buys less than a 40% reduction. ``mixed=True`` runs the
     ladder in f32 with the factor's approx (or precond) apply.
 
+    ``bs_target``, ``update_guess`` and ``callback`` are the reference's
+    keywords, accepted and discarded as JAX's sibk does: the block is
+    always all N right-hand sides, every round restarts from the true
+    residuals, and ``info["hist"]`` holds what a callback would see.
+
     Returns (psi, EigCorrection, info) with info = dict(res = final true
     relative residuals, niter, rounds, hist).
     """
+    del bs_target, update_guess, callback
     s = _sibk_setup(Phib, A, B, lam, Phi, mode=mode, sigma=sigma,
                     factor=factor, rtol=rtol, atol=atol, maxiter=maxiter,
                     check_every=check_every, mixed=mixed, ladder=ladder,
@@ -472,7 +486,7 @@ def sibk(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
 
 def pcpg(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
          factor=None, rtol=1e-10, atol=1e-30, eig_atol=1e-5, maxiter=100,
-         reset=25, precond=None, deflate=None, axis=None):
+         reset=25, callback=None, axis=None, precond=None, deflate=None):
     """PCPG adjoint solver (Alvin, AIAA J. 1997).
 
     All N systems advance together with per-column coefficients; converged
@@ -488,9 +502,13 @@ def pcpg(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
     psi_i += u_r (u_r . Phib_i) / lam_i, and every iterate stays
     B-orthogonal to U.
 
+    ``callback`` is the reference's keyword, accepted and discarded as
+    JAX's pcpg does: ``info["hist"]`` holds what it would see.
+
     Returns (psi, EigCorrection, info) with info = dict(res = final
     relative residuals, niter, hist = per-iteration history).
     """
+    del callback
     A, B = as_operator(A), as_operator(B)
     N = Phib.shape[1]
     dtype = Phib.dtype
@@ -584,7 +602,7 @@ def pcpg(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
 
 def pgmres(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
            factor=None, rtol=1e-10, atol=1e-30, eig_atol=1e-5, maxiter=50,
-           check_every=8, axis=None):
+           check_every=8, callback=None, axis=None):
     """Projected GMRES adjoint solver: one Arnoldi recurrence a mode on its
     own shifted operator (A - lam_i B) with the factor as the right
     preconditioner, the N recurrences advanced as one batch.
@@ -595,10 +613,14 @@ def pgmres(Phib, A, B, lam, Phi, mode="normal", psi=None, sigma=None,
     host decision a check (``sync.HOST_SYNCS["pgmres"]``). The bases are
     O(N * maxiter * n): a cross-check method at moderate n.
 
+    ``callback`` is the reference's keyword, accepted and discarded as
+    JAX's pgmres does: ``info["hist"]`` holds what it would see.
+
     Returns (psi, EigCorrection, info) with info = dict(res = final
     relative least-squares residuals, niter = steps summed over modes,
     hist = per-check history).
     """
+    del callback
     A, B = as_operator(A), as_operator(B)
     n, N = Phib.shape
     dtype = Phib.dtype

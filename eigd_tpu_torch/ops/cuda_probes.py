@@ -23,7 +23,8 @@ pointers into it and copies nothing.
 A CPU tensor goes to the plain twin (``floor_variant_ref``,
 ``dma_probe_ref``, written from the Pallas bodies in their accumulation
 order). A CUDA tensor goes to the kernel, or the call raises: there is no
-fallback. ``K3_LAUNCHES``/``K4_LAUNCHES`` count launches and nothing else.
+fallback, and no autograd rule (``cuda_stencil.refuse_grad``).
+``K3_LAUNCHES``/``K4_LAUNCHES`` count launches and nothing else.
 The host path of a call is short (each C entry point is bound once, the
 stream is read as a raw handle, the output comes from ``new_empty``), so
 that back-to-back calls time the kernel and not the host.
@@ -35,6 +36,8 @@ import collections
 import functools
 
 import torch
+
+from .cuda_stencil import refuse_grad
 
 K3_LAUNCHES = 0
 K4_LAUNCHES = 0
@@ -118,6 +121,7 @@ def _entry(name):
 
 
 def _check_cuda(tensors):
+    refuse_grad(*tensors)
     dev = tensors[0].device
     for t in tensors:
         if not t.is_cuda or t.device != dev:

@@ -23,7 +23,9 @@ no counterpart. ``launch_plan`` says how a call is cut into blocks.
 
 A CPU tensor goes to the plain twin (``matvec_planes_ref`` for K1,
 ``stencil.stencil_matvec`` for K2). A CUDA tensor goes to the kernel, or
-the call raises: there is no fallback. ``K1_LAUNCHES``/``K2_LAUNCHES``
+the call raises: there is no fallback. The kernels have no autograd rule,
+so a CUDA input that requires grad under grad mode raises too
+(``refuse_grad``); the twins differentiate. ``K1_LAUNCHES``/``K2_LAUNCHES``
 count launches and nothing else. The host path of a call is kept short
 (the C entry point is bound once; the stream is read as a raw handle):
 at the small grids of the V-cycle the host time of a call exceeds the
@@ -134,9 +136,24 @@ def launch_plan(X, Y, ndof, k, itemsize, staged):
                       (nbuf * kc * slab + stage) * itemsize)
 
 
+def refuse_grad(*tensors):
+    """Raise where autograd would need a gradient of a kernel's output: a
+    kernel fills a new tensor through a ctypes launch, which autograd does
+    not see, so the output would have no ``grad_fn`` and the gradient
+    would be lost. A caller that wants one takes the plain path (as
+    ``GridStencilOperator.with_kernels`` and ``mgshard.
+    sharded_stencil_matvec`` do)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "a CUDA kernel has no autograd rule and was given an input that "
+            "requires grad under grad mode: take the plain path for a "
+            "gradient, or call it under torch.no_grad()")
+
+
 def _check(Wp, x, ndof, X, Y, dtype):
     """Raise on what the kernel cannot take (x's shape is checked by the
     caller)."""
+    refuse_grad(Wp, x)
     if not x.is_cuda or Wp.get_device() != x.get_device():
         raise ValueError(f"kernel needs W and x on one CUDA device, got "
                          f"{Wp.device} and {x.device}")

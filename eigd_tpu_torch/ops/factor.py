@@ -68,6 +68,9 @@ class CholeskyFactor:
             y = y + self._solve(x - self.mat @ y)
         return y
 
+    def __call__(self, x):
+        return self.mv(x)
+
     def ok(self):
         """False if the matrix was not SPD (NaNs in the factor)."""
         return torch.all(torch.isfinite(self.chol))
@@ -98,6 +101,9 @@ class EighFactor:
         t = self.q.T @ x
         t = t / (self.w if x.ndim == 1 else self.w[:, None])
         return self.q @ t
+
+    def __call__(self, x):
+        return self.mv(x)
 
 
 class CGFactor:
@@ -146,6 +152,9 @@ class CGFactor:
             p = torch.where(active[None, :], z + beta[None, :] * p, 0.0)
             rz = rz_new
         return x[:, 0] if squeeze else x
+
+    def __call__(self, x):
+        return self.mv(x)
 
 
 def make_shift_factor(A, B, sigma, mode="normal", kind="cholesky", **kwargs):

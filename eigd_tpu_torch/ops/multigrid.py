@@ -584,6 +584,12 @@ class GridMGFactor:
         return stencil_matvec(self.Ws[0], x, nx, ny, self.ndof)
 
     @property
+    def shape(self):
+        nx, ny = self.shapes[0]
+        n = (nx + 1) * (ny + 1) * self.ndof
+        return (n, n)
+
+    @property
     def dtype(self):
         return torch.float64 if self.W64 is not None else torch.float32
 
@@ -592,6 +598,9 @@ class GridMGFactor:
         in f64 with the f32 V-cycle as the preconditioner)."""
         y, _ = self.mv_info(x)
         return y
+
+    def __call__(self, x):
+        return self.mv(x)
 
     def mv_info(self, x, x0=None):
         """Like ``mv`` but also returns the inner-PCG convergence info

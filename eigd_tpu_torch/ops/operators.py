@@ -2,13 +2,17 @@
 
 Counterpart of ``eigd_tpu/ops/operators.py``: an explicit dense matrix, a
 diagonal, and the finite-element operator (per-element dense blocks plus a
-DOF map). Every ``mv`` accepts a vector (n,) or a block (n, k). The
-element matvec is a gather, a batched matmul and a scatter-add in place of
-JAX's ``segment_sum`` (``scatter_rows``: the same sums in the same order
-on every run, on the CPU and on the card).
+DOF map). Every ``mv`` accepts a vector (n,) or a block (n, k), and
+calling an operator is its ``mv``. The element matvec is a gather, a
+batched matmul and a scatter-add in place of JAX's ``segment_sum``
+(``scatter_rows``: the same sums in the same order on every run, on the
+CPU and on the card). ``reduce_operator_dense``, ``expand_vector`` and
+``reduce_vector`` apply Dirichlet conditions by keeping the free DOFs.
 """
 
 from __future__ import annotations
+
+from typing import Union
 
 import torch
 
@@ -53,6 +57,9 @@ class DenseOperator:
     def mv(self, x):
         return self.mat @ x
 
+    def __call__(self, x):
+        return self.mv(x)
+
     def to_dense(self):
         return self.mat
 
@@ -80,6 +87,9 @@ class DiagonalOperator:
         if x.ndim == 1:
             return self.diag * x
         return self.diag[:, None] * x
+
+    def __call__(self, x):
+        return self.mv(x)
 
     def to_dense(self):
         return torch.diag(self.diag)
@@ -124,8 +134,14 @@ class ElementOperator:
                          self.n)
         return y[:, 0] if squeeze else y
 
+    def __call__(self, x):
+        return self.mv(x)
+
     def to_dense(self):
         return element_dense(self.mats, self.dofs, self.n)
+
+
+Operator = Union[DenseOperator, DiagonalOperator, ElementOperator]
 
 
 def as_operator(obj):
@@ -141,3 +157,28 @@ def as_operator(obj):
     if obj.ndim == 2:
         return DenseOperator(obj)
     raise TypeError(f"Cannot interpret a {obj.ndim}-d tensor as an operator")
+
+
+def _index(free, device):
+    return torch.as_tensor(free, dtype=torch.int64, device=device)
+
+
+def reduce_operator_dense(op, free):
+    """The free-free block of ``op``'s dense form, a ``DenseOperator``:
+    Dirichlet conditions applied by keeping the free DOFs (``free``, their
+    indices) rather than deleting rows and columns."""
+    mat = op.to_dense()
+    free = _index(free, mat.device)
+    return DenseOperator(mat.index_select(0, free).index_select(1, free))
+
+
+def expand_vector(vec, free, n):
+    """A reduced vector (nfree, ...) scattered back to the full space
+    (n, ...), zero on the fixed DOFs."""
+    out = vec.new_zeros((n,) + tuple(vec.shape[1:]))
+    return out.index_put((_index(free, vec.device),), vec)
+
+
+def reduce_vector(vec, free):
+    """The free entries of a full vector (n, ...) -> (nfree, ...)."""
+    return vec.index_select(0, _index(free, vec.device))

@@ -149,3 +149,6 @@ class GridStencilOperator:
             return cuda_stencil.stencil_matvec32(self.Wp32, x, nx, ny,
                                                  self.ndof)
         return stencil_matvec(self.W, x, nx, ny, self.ndof)
+
+    def __call__(self, x):
+        return self.mv(x)

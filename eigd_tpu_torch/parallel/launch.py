@@ -15,6 +15,8 @@ child imports it by name) and return something picklable. Tensors in the
 result come back as numpy arrays.
 
 ``local_axis`` starts a world-1 group in the calling process instead.
+Both run on the card unless given ``device="cpu"``; with no CUDA device
+they raise before anything starts.
 """
 
 from __future__ import annotations
@@ -29,6 +31,17 @@ import time
 import traceback
 
 
+def require(device):
+    """Raise where ``device`` names CUDA and no CUDA device is available,
+    so that a run never carries on quietly on the CPU."""
+    import torch
+
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} asked for, but no CUDA device is available "
+            "(pass device='cpu' to run on the CPU)")
+
+
 def plan(device, nranks):
     """(per-rank devices, backend) for ``nranks`` ranks on ``device``
     ("cpu", "cuda" or "cuda:i").
@@ -39,6 +52,7 @@ def plan(device, nranks):
     """
     import torch
 
+    require(device)
     dev = torch.device(device)
     if dev.type == "cpu":
         return ["cpu"] * nranks, "gloo"
@@ -94,7 +108,7 @@ def _rank_main(rank, nranks, store_path, device, backend, timeout, fn, args,
             dist.destroy_process_group()
 
 
-def run(fn, nranks, args=(), device="cpu", timeout=300.0):
+def run(fn, nranks, args=(), device="cuda", timeout=300.0):
     """``fn(axis, *args)`` on ``nranks`` spawned ranks; the list of their
     results in rank order.
 
@@ -153,7 +167,7 @@ def run(fn, nranks, args=(), device="cpu", timeout=300.0):
 
 
 @contextlib.contextmanager
-def local_axis(device="cpu", timeout=300.0):
+def local_axis(device="cuda", timeout=300.0):
     """A world-1 process group in this process (NCCL on a CUDA device,
     gloo on the CPU) and its ``Axis``; the group is destroyed on exit."""
     import torch.distributed as dist

@@ -78,10 +78,15 @@ def sharded_stencil_matvec(W_rep, x, L, nlines, ny, ndof, axis):
     W_rep : replicated (ndev*L, ny+1, 3, 3, ndof, ndof) stencil, zero on
         padded lines. x : (L*(ny+1)*ndof,) or (., k) local lines. The
         matvec on the rank's extended grid: K2 (f64) or K1 (f32) on a CUDA
-        x, the plain stencil matvec on a CPU one. (``nlines`` is JAX's
-        argument, unused there too.)
+        x, the plain stencil matvec on a CPU one, and on any device where
+        a gradient is asked for (grad mode on and W_rep or x requiring
+        grad): the kernels have no autograd rule, and JAX's function
+        always differentiates. (``nlines`` is JAX's argument, unused there
+        too.)
     """
     del nlines
+    grad = torch.is_grad_enabled() and (W_rep.requires_grad
+                                        or x.requires_grad)
     squeeze = x.ndim == 1
     if squeeze:
         x = x[:, None]
@@ -89,7 +94,7 @@ def sharded_stencil_matvec(W_rep, x, L, nlines, ny, ndof, axis):
     w = (ny + 1) * ndof
     x_ext = _extend(x.reshape(L, w, k), axis, 0).reshape((L + 2) * w, k)
     W_ext = local_stencil(W_rep, L, axis)
-    if x.is_cpu:
+    if x.is_cpu or grad:
         y = stencil_matvec(W_ext, x_ext, L + 1, ny, ndof)
     elif x.dtype == torch.float64:
         y = cuda_stencil.stencil_matvec64(cuda_stencil.stencil_planes(

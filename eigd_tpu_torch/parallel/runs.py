@@ -9,6 +9,8 @@ import them: the tests, ``chip_smoke.py`` and ``graft_entry`` launch them.
   their backward passes and ppermute's forward-mode rule;
 * ``ops`` - the sharded operators and factors applied to given global
   inputs, the results gathered back to the global layout;
+  ``stencil_gradient`` - the sharded stencil matvec's gradient;
+* ``placement`` - the device and backend a rank was given;
 * ``objective`` / ``families`` - a sharded objective's value and gradient
   at a design point, with central differences along a direction.
 """
@@ -90,6 +92,30 @@ def collectives(axis, staged=False):
     return out
 
 
+def placement(axis):
+    """Where the launcher put this rank: its device, backend, rank and
+    world size, and a psum of ones over the group."""
+    one = torch.ones((), dtype=torch.float64, device=axis.device)
+    return {"device": str(axis.device), "backend": axis.backend,
+            "rank": axis.rank, "size": axis.size,
+            "psum": float(col.psum(one, axis))}
+
+
+def stencil_gradient(axis, W_rep, x, w, part):
+    """psum(<w, sharded_stencil_matvec(W_rep, x)>) on the line partition
+    ``part`` (x and w: the rank's lines) and its gradient in the
+    replicated stencil and in x: (value, grad W_rep, grad x)."""
+    from .mgshard import sharded_stencil_matvec
+
+    W = W_rep.detach().clone().requires_grad_(True)
+    xr = x.detach().clone().requires_grad_(True)
+    y = sharded_stencil_matvec(W, xr, part.L, part.nlines, part.ny,
+                               part.ndof, axis)
+    val = col.psum(torch.sum(w * y), axis)
+    gW, gx = torch.autograd.grad(val, (W, xr))
+    return val.detach(), gW, gx
+
+
 def _spmd_inputs(inputs, axis):
     dev = axis.device
     return {k: (torch.as_tensor(v, device=dev) if isinstance(v, np.ndarray)
@@ -146,12 +172,8 @@ def ops(axis, inputs):
     xm = rows(t["xmg"], mp.n_local)
     out["stencil_mv"] = gather(sharded_stencil_matvec(
         t["W_rep"], xm, L, mp.nlines, ny, nd, axis))
-    # the gradient of psum(<w, A x>) in the replicated stencil and in x
-    W = t["W_rep"].clone().requires_grad_(True)
-    xr = xm.clone().requires_grad_(True)
-    y = sharded_stencil_matvec(W, xr, L, mp.nlines, ny, nd, axis)
-    val = col.psum(torch.sum(rows(t["wmg"], mp.n_local) * y), axis)
-    gW, gx = torch.autograd.grad(val, (W, xr))
+    _, gW, gx = stencil_gradient(axis, t["W_rep"], xm,
+                                 rows(t["wmg"], mp.n_local), mp)
     out["stencil_mv_grad_W"], out["stencil_mv_grad_x"] = gW, gather(gx)
     out["restrict"] = gather(sharded_restrict(xm, L, ny, nd, axis))
     nc = (L // 2) * (ny // 2 + 1) * nd

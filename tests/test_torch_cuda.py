@@ -326,3 +326,69 @@ def test_sharded_objective_on_card_matches_cpu():
     assert cs.K1_LAUNCHES > k1 and cs.K2_LAUNCHES > k2
     assert abs(v_g - v_c) <= 1e-9 * abs(v_c)
     assert np.abs(g_g - g_c).max() <= 1e-7 * np.abs(g_c).max()
+
+
+def sharded_stencil_inputs(device):
+    """A random 2-DOF stencil replicated over the lines of a 16x8
+    partition at world 1 (L 20: the sharded mg factor's multiple of 4,
+    padded lines zero), a 3-column x and a weight of its shape."""
+    from eigd_tpu_torch.parallel.grid import make_partition
+
+    part = make_partition(16, 8, 1, ndof=2, multiple=4)
+    g = torch.Generator().manual_seed(11)
+    W = torch.zeros((part.L, 9, 3, 3, 2, 2), dtype=torch.float64)
+    W[:part.nlines] = torch.randn((part.nlines, 9, 3, 3, 2, 2), generator=g,
+                                  dtype=torch.float64)
+    x, w = (torch.randn((part.n_local, 3), generator=g, dtype=torch.float64)
+            for _ in range(2))
+    return part, W.to(device), x.to(device), w.to(device)
+
+
+def test_sharded_stencil_gradient_on_card():
+    """sharded_stencil_matvec at world 1 on the card (NCCL, the launcher's
+    default device): the gradient of psum(<w, A x>) in the replicated
+    stencil and in x exists and is within 1e-12 of its largest entry of
+    the CPU's (gloo); without a gradient the call launches K2 and agrees
+    with the plain stencil matvec to 1e-12. The wrappers refuse a CUDA
+    input that requires grad under grad mode, and take it under
+    torch.no_grad()."""
+    require_cuda()
+    from eigd_tpu_torch.parallel import launch, runs
+    from eigd_tpu_torch.parallel.mgshard import sharded_stencil_matvec
+
+    grads = {}
+    for device in ("cpu", None):
+        part, W, x, w = sharded_stencil_inputs(device or "cuda")
+        with (launch.local_axis(device) if device else
+              launch.local_axis()) as axis:
+            grads[device] = runs.stencil_gradient(axis, W, x, w, part)
+            if device is None:
+                assert axis.backend == "nccl" and axis.device.type == "cuda"
+                k2 = cs.K2_LAUNCHES
+                with torch.no_grad():
+                    y = sharded_stencil_matvec(W, x, part.L, part.nlines,
+                                               part.ny, 2, axis)
+                assert cs.K2_LAUNCHES == k2 + 1
+                xe = torch.cat([torch.zeros_like(x[:18]), x,
+                                torch.zeros_like(x[:18])])
+                We = torch.cat([W.new_zeros((1,) + W.shape[1:]), W,
+                                W.new_zeros((1,) + W.shape[1:])])
+                ref = stencil_matvec(We, xe, part.L + 1, part.ny, 2)[18:-18]
+                assert (y - ref).abs().max() <= 1e-12 * ref.abs().max()
+    for c, g in zip(grads["cpu"], grads[None]):
+        c, g = c.cpu().numpy(), g.cpu().numpy()
+        assert np.abs(g - c).max() <= 1e-12 * np.abs(c).max()
+
+    W = torch.randn((9, 9, 3, 3, 2, 2), dtype=torch.float64).cuda()
+    x = torch.randn((9 * 9 * 2, 4), dtype=torch.float64).cuda()
+    for mv, dt in ((cs.stencil_matvec64, torch.float64),
+                   (cs.stencil_matvec32, torch.float32)):
+        Wp = cs.stencil_planes(W, 2, dt)
+        xg = x.to(dt).requires_grad_(True)
+        with pytest.raises(RuntimeError, match="autograd"):
+            mv(Wp, xg, 8, 8, 2)
+        with pytest.raises(RuntimeError, match="autograd"):
+            mv(Wp.clone().requires_grad_(True), x.to(dt), 8, 8, 2)
+        with torch.no_grad():
+            y = mv(Wp, xg, 8, 8, 2)
+        assert y.shape == x.shape and not y.requires_grad

@@ -60,7 +60,8 @@ def results():
         pert = np.random.default_rng(7).uniform(size=x0.shape)
         specs.append((fam, dict(kw, v0_local=_v0(part.n_local)),
                       dict(x0=x0, pert=pert, h=1e-6)))
-    port = launch.run(runs.families, NDEV, args=(specs,), timeout=240.0)
+    port = launch.run(runs.families, NDEV, args=(specs,), device="cpu",
+                      timeout=240.0)
     return ref, port
 
 

@@ -63,7 +63,7 @@ def world():
         kw = dict(KW, v0_local=_jax_v0(n))
         opts = (None, _pert(nv), 1e-6) if n == 4 else ()
         out[n] = launch.run(runs.objective, n, args=("nf", kw) + opts,
-                            timeout=DEADLINE)
+                            device="cpu", timeout=DEADLINE)
     return out
 
 
@@ -110,10 +110,11 @@ def mg_runs():
     nv = 17 * 9
     mg = launch.run(runs.objective, 4,
                     args=("nf", dict(MG, factor="mg", adjoint_method="pcpg"),
-                          None, _pert(nv), 1e-6), timeout=DEADLINE)[0]
+                          None, _pert(nv), 1e-6), device="cpu",
+                    timeout=DEADLINE)[0]
     schwarz = launch.run(runs.objective, 4,
                          args=("nf", dict(MG, cg_maxiter=300)),
-                         timeout=DEADLINE)[0]
+                         device="cpu", timeout=DEADLINE)[0]
     return mg, schwarz
 
 

@@ -85,9 +85,35 @@ def test_padded_layout(shape):
 # ---------------------------------------------------------------------------
 
 
+def test_launcher_defaults_to_the_card(monkeypatch):
+    """run and local_axis default to device "cuda"; where CUDA is absent
+    (made so here), each raises the "pass device='cpu'" error before a
+    rank is spawned or a process group started."""
+    import inspect
+    import multiprocessing
+
+    import torch.distributed as dist
+
+    for fn in (launch.run, launch.local_axis):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+    def no_spawn(*a, **k):
+        raise AssertionError("a rank was spawned")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(multiprocessing, "get_context", no_spawn)
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        launch.run(runs.placement, 1)
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        with launch.local_axis():
+            pass
+    assert not dist.is_initialized()
+
+
 @pytest.fixture(scope="module")
 def coll():
-    return launch.run(runs.collectives, NDEV, timeout=DEADLINE)
+    return launch.run(runs.collectives, NDEV, device="cpu",
+                      timeout=DEADLINE)
 
 
 def _x(r):
@@ -159,7 +185,7 @@ def test_staged_collectives_match(coll):
     """The staged collectives (ppermute through host buffers, as an axis
     on gloo with CUDA tensors runs it) give what the unstaged ones give,
     bitwise."""
-    staged = launch.run(runs.collectives, NDEV, args=(True,),
+    staged = launch.run(runs.collectives, NDEV, args=(True,), device="cpu",
                         timeout=DEADLINE)
     for c, s in zip(coll, staged):
         assert s["staged"] and not c["staged"]
@@ -259,7 +285,8 @@ def cases():
     inp["emv_n"], inp["emv_x"] = 30, rng.standard_normal(30)
     inp["emv_w"] = rng.standard_normal(30)
     inp["wmg"] = rng.standard_normal(inp["xmg"].shape)
-    port = launch.run(runs.ops, NDEV, args=(inp,), timeout=DEADLINE)
+    port = launch.run(runs.ops, NDEV, args=(inp,), device="cpu",
+                      timeout=DEADLINE)
     return inp, dense, port
 
 
