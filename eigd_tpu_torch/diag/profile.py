@@ -4,9 +4,10 @@ Builds the named bench configurations (``configs.CONFIGS``: ``263k``,
 ``1m``), runs two unprofiled evaluations (a warm one and a timed one, host
 clock around work that ends in ``torch.cuda.synchronize()``), then one
 under ``torch.profiler`` with CPU and CUDA activities. It prints the wall
-times, the device kernel time and the busy share (device time over wall
-time, under the profiler and against the unprofiled evaluation), and the
-device time by class of kernel and by kernel.
+times, the device time by class of kernel and by kernel, and the
+program's spans of the profiled evaluation (``ops.sync``: each span's
+self and inclusive host time and entries, and the host's wait in each
+decision site).
 
 ``tangent:<size>`` does the same for ``staged_jvp`` along the bench's
 direction (``default_rng(7)``): two timed calls, then one profiled, with
@@ -42,6 +43,7 @@ import torch
 
 from ..fem.assembly import element_density
 from ..models.natural_frequency import make_model
+from ..ops import sync
 from ..ops.autodiff import staged_jvp
 from .common import card, cuda_time_ms, require_cuda
 from .configs import CONFIGS, tail
@@ -61,6 +63,14 @@ def classify(name):
         if any(k in name for k in keys):
             return cls
     return "other"
+
+
+def kernel_rows(events):
+    """The device rows of ``key_averages()``: kernels, copies and memsets,
+    not the device side of a range (a span or a stage)."""
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation]
 
 
 def evaluate(topo):
@@ -85,6 +95,7 @@ def profile(size, top=12):
           f"{bwd:.3f} s", flush=True)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    sync.clear()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         evaluate(topo)
@@ -92,10 +103,8 @@ def profile(size, top=12):
     by_class = collections.Counter()
     launches = collections.Counter()
     kernels = []
-    for e in prof.key_averages():
-        # device rows only: a CPU op's row repeats its kernels' time
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    # device rows only: a CPU op's row repeats its kernels' time
+    for e in kernel_rows(prof.key_averages()):
         dev_us = e.self_device_time_total
         cls = classify(e.key)
         by_class[cls] += dev_us
@@ -104,15 +113,19 @@ def profile(size, top=12):
     total_s = sum(by_class.values()) / 1e6
     print(f"[{size}] profiled evaluation {wall:.3f} s: device kernel time "
           f"{total_s * 1e3:.1f} ms in {sum(launches.values())} device "
-          f"events; busy share {total_s / wall:.3f} (profiled), "
-          f"{total_s / (fwd + bwd):.3f} (against the unprofiled "
-          f"evaluation)")
+          f"events")
     for cls, us in by_class.most_common():
         print(f"[{size}]   {cls}: {us / 1e3:.1f} ms "
               f"({us / 1e6 / total_s:.1%}), {launches[cls]} launches, "
               f"mean {us / launches[cls]:.1f} us")
     for us, count, key in sorted(kernels, reverse=True)[:top]:
         print(f"[{size}]   kernel {us / 1e3:.2f} ms x{count}: {key[:110]}")
+    for name, s in sync.SELF_S.most_common():
+        print(f"[{size}]   span {name}: self {s * 1e3:.1f} ms, inclusive "
+              f"{sync.SPAN_S[name] * 1e3:.1f} ms, x{sync.SPAN_N[name]}")
+    for site, s in sync.WAIT_S.most_common():
+        print(f"[{size}]   wait {site}: {s * 1e3:.1f} ms in "
+              f"{sync.HOST_SYNCS[site]} decisions")
 
 
 def tangent(size, top=12):
@@ -159,8 +172,7 @@ def tangent(size, top=12):
     for e in rows[:top]:
         print(f"[tangent {size}]   op {e.key[:60]}: self host "
               f"{e.self_cpu_time_total / 1e3:.1f} ms x{e.count}", flush=True)
-    kernels = sorted((e for e in events
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
+    kernels = sorted(kernel_rows(events),
                      key=lambda e: e.self_device_time_total, reverse=True)
     for e in kernels[:top]:
         print(f"[tangent {size}]   kernel {e.key[:80]}: "
@@ -197,8 +209,7 @@ def minfreq(size, top=12):
     for e in rows[:top]:
         print(f"[minfreq {size}]   op {e.key[:60]}: self host "
               f"{e.self_cpu_time_total / 1e3:.1f} ms x{e.count}", flush=True)
-    kernels = sorted((e for e in events
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
+    kernels = sorted(kernel_rows(events),
                      key=lambda e: e.self_device_time_total, reverse=True)
     for e in kernels[:top]:
         print(f"[minfreq {size}]   kernel {e.key[:80]}: "

@@ -40,6 +40,7 @@ from ..ops.autodiff import (EigProblem, EighGenConfig, eigh_gen, kernels_on,
                             solve_spd)
 from ..ops.operators import DenseOperator, ElementOperator
 from ..ops.stencil import GridStencilOperator
+from ..ops.sync import span
 from .natural_frequency import weakly
 
 SCALABLE_KINDS = ("bcr_f32", "bcr", "blocktridiag", "blocktridiag_f32")
@@ -272,6 +273,7 @@ class BucklingTopologyAnalysis:
             torch.cuda.synchronize(self.device)
         return time.perf_counter() - t0
 
+    @span("eigd.protocol.initialize")
     def initialize(self, store=False):
         """Solve at ``self.x`` and hold the autograd graph of the solve for
         ``finalize_adjoint``, releasing the previous one first.
@@ -321,6 +323,7 @@ class BucklingTopologyAnalysis:
         self.complianceb = torch.zeros((), dtype=torch.float64,
                                        device=self.device)
 
+    @span("eigd.protocol.finalize_adjoint")
     def finalize_adjoint(self):
         """xb += the seeds (lamb, Qrb, complianceb) pulled through the
         held graph, which stays for further passes until the next

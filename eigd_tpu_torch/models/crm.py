@@ -40,6 +40,7 @@ from ..ops.autodiff import (EigProblem, EighGenConfig, eigh_gen,
                             eigh_gen_tangent, kept_forward)
 from ..ops.operators import (DenseOperator, ElementOperator, element_dense,
                              scatter_rows)
+from ..ops.sync import span
 from .natural_frequency import weakly
 
 FACTOR_KINDS = ("cholesky", "bcr", "bcr_f32", "blocktridiag",
@@ -444,6 +445,7 @@ class CRM:
             torch.cuda.synchronize(self.device)
         return time.perf_counter() - t0
 
+    @span("eigd.protocol.initialize")
     def initialize(self, store=False):
         """Solve at ``self.x`` and hold the autograd graph of the solve for
         ``finalize_adjoint`` and ``objective_jvp``, releasing the previous
@@ -471,6 +473,7 @@ class CRM:
         self.lamb = torch.zeros_like(self.lam)
         self.Qrb = torch.zeros_like(self.Qr)
 
+    @span("eigd.protocol.finalize_adjoint")
     def finalize_adjoint(self):
         """xb += the seeds (lamb, Qrb) pulled through the held graph, which
         stays for further passes until the next ``initialize``."""

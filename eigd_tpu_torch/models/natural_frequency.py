@@ -36,6 +36,7 @@ from ..ops.factor import make_shift_factor
 from ..ops.lanczos import b_orthonormalize_rows, lanczos_solve
 from ..ops.operators import ElementOperator
 from ..ops.stencil import GridStencilOperator
+from ..ops.sync import span
 
 
 def weakly(method):
@@ -268,6 +269,7 @@ class TopologyAnalysis:
             torch.cuda.synchronize(self.device)
         return time.perf_counter() - t0
 
+    @span("eigd.protocol.initialize")
     def initialize(self, store=False):
         """Solve at ``self.x`` and hold the autograd graph of the solve for
         ``finalize_adjoint``; eigenvector signs follow the previous solve.
@@ -332,6 +334,7 @@ class TopologyAnalysis:
         self.x, self.lam, self.Q = state["x"], state["lam"], state["Q"]
         return self
 
+    @span("eigd.protocol.finalize_adjoint")
     def finalize_adjoint(self):
         """xb += the seeds (lamb, Qb) pulled through the graph that
         ``initialize`` holds. The graph is kept until the next
@@ -479,6 +482,7 @@ class MinFreqOpt:
         low = torch.min(vals)
         return low - torch.log(torch.sum(torch.exp(-ks * (vals - low)))) / ks
 
+    @span("eigd.protocol.initialize")
     def initialize(self, store=False):
         self.topo.initialize(store)
         self.omega = self.topo.get_frequencies()
@@ -498,6 +502,7 @@ class MinFreqOpt:
     def initialize_adjoint(self):
         self.topo.initialize_adjoint()
 
+    @span("eigd.protocol.finalize_adjoint")
     def finalize_adjoint(self):
         self.topo.add_frequency_derivatives(self.omegab)
         for name in self.node_sets:

@@ -27,6 +27,7 @@ from ..fem import assembly as fem
 from ..fem.quad import thermal_tables
 from ..ops.autodiff import EigProblem, EighGenConfig, eigh_gen
 from ..ops.stencil import GridStencilOperator
+from ..ops.sync import span
 from .natural_frequency import BLOCK_FACTOR_KINDS, block_factor_fn, weakly
 
 
@@ -166,6 +167,7 @@ class ThermalTopologyAnalysis:
             torch.cuda.synchronize(self.device)
         return time.perf_counter() - t0
 
+    @span("eigd.protocol.initialize")
     def initialize(self, store=False):
         """Solve at ``self.x`` and hold the autograd graph of the solve for
         ``finalize_adjoint``, releasing the previous one first."""
@@ -193,6 +195,7 @@ class ThermalTopologyAnalysis:
         self.lamb = torch.zeros_like(self.lam)
         self.Qb = torch.zeros_like(self.Q)
 
+    @span("eigd.protocol.finalize_adjoint")
     def finalize_adjoint(self):
         """xb += the seeds (lamb, Qb) pulled through the held graph, which
         stays for further adjoint passes until the next ``initialize``."""
@@ -356,6 +359,7 @@ class ThermalOpt:
 
     # -- the reference's API -------------------------------------------------
 
+    @span("eigd.protocol.initialize")
     def initialize(self, store=False):
         self.topo.initialize(store)
         self.lam = self.topo.lam
@@ -381,6 +385,7 @@ class ThermalOpt:
 
         topo._add_seeds(1.0, total)
 
+    @span("eigd.protocol.finalize_adjoint")
     def finalize_adjoint(self):
         self.topo.finalize_adjoint()
 

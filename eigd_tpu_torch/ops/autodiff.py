@@ -38,13 +38,13 @@ from contextlib import nullcontext
 from typing import Callable
 
 import torch
-from torch.profiler import record_function
 
 from . import adjoint as adj
 from .collective import pdot, psum
 from .factor import make_shift_factor
 from .lanczos import b_orthonormalize_rows, block_lanczos_solve, lanczos_solve
 from .operators import DenseOperator
+from .sync import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,33 +129,33 @@ def _kernel_ops(A, B, cfg):
 
 def _forward_ops(theta, problem, A, B, cfg):
     A, B = _kernel_ops(A, B, cfg)
-    if problem.factor is not None:
-        factor = problem.factor(A, B, cfg.sigma, cfg.mode)
-    else:
-        factor = make_shift_factor(A, B, cfg.sigma, mode=cfg.mode,
-                                   kind=cfg.factor_kind)
-    deflate = None
-    if problem.nullspace is not None:
-        deflate = b_orthonormalize_rows(problem.nullspace(theta), B.mv,
-                                        axis=cfg.axis)
-    v0 = problem.v0(theta) if problem.v0 is not None else None
-    if cfg.block <= 1:
-        res = lanczos_solve(A, B, factor, cfg.sigma, cfg.N, cfg.m,
-                            mode=cfg.mode, seed=cfg.seed, deflate=deflate,
-                            axis=cfg.axis, tol=cfg.lanczos_tol, v0=v0,
-                            check_every=max(cfg.lanczos_check_every, 8),
-                            polish=cfg.polish)
-        return A, B, res, factor
-    res = block_lanczos_solve(A, B, factor, cfg.sigma, cfg.N, cfg.m,
-                              cfg.block, mode=cfg.mode, seed=cfg.seed,
-                              deflate=deflate, axis=cfg.axis,
-                              tol=cfg.lanczos_tol, v0=v0,
-                              ortho=cfg.lanczos_ortho,
-                              check_every=cfg.lanczos_check_every,
-                              polish=cfg.polish,
-                              polish_spare=cfg.polish_spare,
-                              sweep=cfg.lanczos_sweep,
-                              measure_res=cfg.measure_eig_res)
+    with span("eigd.factor.build"):
+        if problem.factor is not None:
+            factor = problem.factor(A, B, cfg.sigma, cfg.mode)
+        else:
+            factor = make_shift_factor(A, B, cfg.sigma, mode=cfg.mode,
+                                       kind=cfg.factor_kind)
+    with span("eigd.eig.lanczos"):
+        deflate = None
+        if problem.nullspace is not None:
+            deflate = b_orthonormalize_rows(problem.nullspace(theta), B.mv,
+                                            axis=cfg.axis)
+        v0 = problem.v0(theta) if problem.v0 is not None else None
+        if cfg.block <= 1:
+            res = lanczos_solve(A, B, factor, cfg.sigma, cfg.N, cfg.m,
+                                mode=cfg.mode, seed=cfg.seed,
+                                deflate=deflate, axis=cfg.axis,
+                                tol=cfg.lanczos_tol, v0=v0,
+                                check_every=max(cfg.lanczos_check_every, 8),
+                                polish=cfg.polish)
+        else:
+            res = block_lanczos_solve(
+                A, B, factor, cfg.sigma, cfg.N, cfg.m, cfg.block,
+                mode=cfg.mode, seed=cfg.seed, deflate=deflate, axis=cfg.axis,
+                tol=cfg.lanczos_tol, v0=v0, ortho=cfg.lanczos_ortho,
+                check_every=cfg.lanczos_check_every, polish=cfg.polish,
+                polish_spare=cfg.polish_spare, sweep=cfg.lanczos_sweep,
+                measure_res=cfg.measure_eig_res)
     return A, B, res, factor
 
 
@@ -164,9 +164,9 @@ def _projected_solve(rhs, A, B, res, factor, cfg, method, deflate=None,
     """psi and its correction data for the projected systems with
     right-hand sides ``rhs`` (the adjoint seed, or the tangent's W): an LAA
     guess, then ``method`` ("laa", "sibk", "pcpg" or "pgmres"). ``tag``
-    names the profiler ranges of the two stages."""
+    names the spans of the two stages."""
     def stage(name):
-        return record_function(f"{tag}.{name}") if tag else nullcontext()
+        return span(f"{tag}.{name}") if tag else nullcontext()
 
     with stage("laa"):
         psi0 = adj.laa(rhs, B, factor, res, b_ortho=True, mode=cfg.mode,
@@ -202,6 +202,7 @@ def _projected_solve(rhs, A, B, res, factor, cfg, method, deflate=None,
     return psi, data
 
 
+@span("eigd.adjoint.solve")
 def solve_eig_adjoint(A, B, res, factor, lam_bar, Phi_bar, cfg,
                       deflate=None):
     """Reverse-pass core: adjoint solve + correction + weight blocks.
@@ -269,11 +270,13 @@ class EighGenDense(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, A, B, cfg):
-        factor = make_shift_factor(A, B, cfg.sigma, mode=cfg.mode,
-                                   kind=cfg.factor_kind)
+        with span("eigd.factor.build"):
+            factor = make_shift_factor(A, B, cfg.sigma, mode=cfg.mode,
+                                       kind=cfg.factor_kind)
         Aop, Bop = DenseOperator(A), DenseOperator(B)
-        res = lanczos_solve(Aop, Bop, factor, cfg.sigma, cfg.N, cfg.m,
-                            mode=cfg.mode, seed=cfg.seed)
+        with span("eigd.eig.lanczos"):
+            res = lanczos_solve(Aop, Bop, factor, cfg.sigma, cfg.N, cfg.m,
+                                mode=cfg.mode, seed=cfg.seed)
         _keep_solve(ctx, Aop, Bop, res, factor)
         ctx.cfg = cfg
         return res.lam, res.Phi
@@ -460,7 +463,7 @@ def eigh_gen_tangent(theta, dtheta, problem, cfg, fwd=None):
             return tuple(v.detach() for v in t)
         return t.detach()
 
-    with record_function("eigh_gen_tangent.operators"):
+    with span("eigh_gen_tangent.operators"):
         _, (dAP, dBP) = torch.func.jvp(apply_both, (detached(theta),),
                                        (detached(dtheta),))
 
@@ -557,19 +560,19 @@ def staged_jvp(pre, tail, problem: EigProblem, cfg: EighGenConfig):
     eigensolve runs once and its (A, B, res, factor) feed the tangent
     solve; both modes share the primal solve, so |jvp - g.p| isolates
     solver and derivation error with no FD step. Returns
-    ``fn(x, p) -> (value, dvalue)``. Its stages are ``torch.profiler``
-    ranges (``staged_jvp.*``, ``eigh_gen_tangent.*``).
+    ``fn(x, p) -> (value, dvalue)``. Its stages are spans
+    (``staged_jvp.*``, ``eigh_gen_tangent.*``).
     """
     def fn(x, p):
-        with torch.no_grad(), record_function("staged_jvp.forward"):
+        with torch.no_grad(), span("staged_jvp.forward"):
             theta = pre(x)
             A, B = problem.assemble(theta)
             fwd = _forward_ops(theta, problem, A, B, cfg)
-        with record_function("staged_jvp.pre"):
+        with span("staged_jvp.pre"):
             theta, dtheta = torch.func.jvp(pre, (x,), (p,))
         lam, Phi, dlam, dPhi = eigh_gen_tangent(theta, dtheta, problem, cfg,
                                                 fwd=fwd)
-        with record_function("staged_jvp.tail"):
+        with span("staged_jvp.tail"):
             return torch.func.jvp(tail, (lam, Phi), (dlam, dPhi))
 
     return fn

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from .operators import ElementOperator
-from .sync import host_flags, loop_exit
+from .sync import columns, host_flags, loop_exit, span
 
 
 def grid_block_tridiag(mats, nx, ny, ndof=2):
@@ -150,6 +150,7 @@ class BlockTridiagFactor:
     def dtype(self):
         return self.Linv.dtype
 
+    @span("eigd.factor.apply", work=columns)
     def mv(self, x):
         squeeze = x.ndim == 1
         if squeeze:
@@ -170,6 +171,7 @@ class BlockTridiagFactor:
         out = torch.stack(Z).reshape(self.nb * self.b, k)
         return out[:, 0] if squeeze else out
 
+    @span("eigd.factor.apply", work=columns)
     def __call__(self, x):
         return self.mv(x)
 
@@ -287,6 +289,7 @@ class BCRFactor:
         x[1::2] = x_odd
         return x
 
+    @span("eigd.factor.apply", work=columns)
     def mv(self, x):
         squeeze = x.ndim == 1
         if squeeze:
@@ -297,6 +300,7 @@ class BCRFactor:
         out = out.reshape(self.nb * self.b, k)
         return out[:, 0] if squeeze else out
 
+    @span("eigd.factor.apply", work=columns)
     def __call__(self, x):
         return self.mv(x)
 
@@ -329,11 +333,13 @@ class RefinedFactor:
     def _approx(self, r):
         return self.inner.mv(r.to(torch.float32)).to(torch.float64)
 
+    @span("eigd.factor.apply", work=columns)
     def approx_mv(self, r):
         """One preconditioner-quality solve (the bare f32 inner apply, in
         the inner factor's dtype), for mixed-precision Krylov ladders."""
         return self.inner.mv(r)
 
+    @span("eigd.factor.apply", work=columns)
     def mv(self, x):
         squeeze = x.ndim == 1
         if squeeze:
@@ -367,6 +373,7 @@ class RefinedFactor:
         loop_exit("refine", why, k)
         return y[:, 0] if squeeze else y
 
+    @span("eigd.factor.apply", work=columns)
     def __call__(self, x):
         return self.mv(x)
 
@@ -413,6 +420,7 @@ class PCGFactor:
         s = self.s[:, None]
         return s * self.inner.mv((s * r).to(torch.float32)).to(torch.float64)
 
+    @span("eigd.factor.apply", work=columns)
     def approx_mv(self, r):
         """Inexact solve for mixed ladders and approximate sweeps: the same
         PCG truncated at (approx_tol, approx_maxiter), in f32 with an f32
@@ -490,6 +498,7 @@ class PCGFactor:
         loop_exit(site, why, k)
         return y, r2, k
 
+    @span("eigd.factor.apply", work=columns)
     def precond_mv(self, r):
         """ONE raw preconditioner apply (the mixed SIBK "precond" ladder)."""
         squeeze = r.ndim == 1
@@ -498,9 +507,11 @@ class PCGFactor:
         y = self._pre(r.to(torch.float64))
         return y[:, 0] if squeeze else y
 
+    @span("eigd.factor.apply", work=columns)
     def mv_info(self, x):
         return self._pcg(x, self.tol, self.maxiter)
 
+    @span("eigd.factor.apply", work=columns)
     def mv_warm(self, x, x0):
         """Accurate solve warm-started at x0; the gate stays relative to
         ||x||, so the guess only removes iterations."""
@@ -525,8 +536,10 @@ class PCGFactor:
                 "res": torch.sqrt(r2 / torch.clamp(nrm2, min=1e-300))}
         return (y[:, 0] if squeeze else y), info
 
+    @span("eigd.factor.apply", work=columns)
     def mv(self, x):
         return self.mv_info(x)[0]
 
+    @span("eigd.factor.apply", work=columns)
     def __call__(self, x):
         return self.mv(x)

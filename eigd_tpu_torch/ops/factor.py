@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from .operators import DenseOperator, as_operator
+from .sync import columns, span
 
 
 class CholeskyFactor:
@@ -62,12 +63,14 @@ class CholeskyFactor:
         y = torch.linalg.solve_triangular(self.chol.T, y, upper=True)
         return y[:, 0] if squeeze else y
 
+    @span("eigd.factor.apply", work=columns)
     def mv(self, x):
         y = self._solve(x)
         for _ in range(self.refine):
             y = y + self._solve(x - self.mat @ y)
         return y
 
+    @span("eigd.factor.apply", work=columns)
     def __call__(self, x):
         return self.mv(x)
 
@@ -97,11 +100,13 @@ class EighFactor:
     def dtype(self):
         return self.w.dtype
 
+    @span("eigd.factor.apply", work=columns)
     def mv(self, x):
         t = self.q.T @ x
         t = t / (self.w if x.ndim == 1 else self.w[:, None])
         return self.q @ t
 
+    @span("eigd.factor.apply", work=columns)
     def __call__(self, x):
         return self.mv(x)
 
@@ -128,6 +133,7 @@ class CGFactor:
     def dtype(self):
         return self.diag.dtype
 
+    @span("eigd.factor.apply", work=columns)
     def mv(self, b):
         squeeze = b.ndim == 1
         if squeeze:
@@ -153,6 +159,7 @@ class CGFactor:
             rz = rz_new
         return x[:, 0] if squeeze else x
 
+    @span("eigd.factor.apply", work=columns)
     def __call__(self, x):
         return self.mv(x)
 

@@ -30,7 +30,7 @@ import torch
 
 from . import cuda_stencil
 from .stencil import stencil_matvec
-from .sync import host_flags, loop_exit
+from .sync import columns, host_flags, loop_exit, span
 
 
 # ---------------------------------------------------------------------------
@@ -593,15 +593,18 @@ class GridMGFactor:
     def dtype(self):
         return torch.float64 if self.W64 is not None else torch.float32
 
+    @span("eigd.factor.apply", work=columns)
     def mv(self, x):
         """Solve A y = x to ~rtol in the operator's working dtype (f64: PCG
         in f64 with the f32 V-cycle as the preconditioner)."""
         y, _ = self.mv_info(x)
         return y
 
+    @span("eigd.factor.apply", work=columns)
     def __call__(self, x):
         return self.mv(x)
 
+    @span("eigd.factor.apply", work=columns)
     def mv_info(self, x, x0=None):
         """Like ``mv`` but also returns the inner-PCG convergence info
         (niter, per-column final squared residuals, tol2)."""
@@ -625,6 +628,7 @@ class GridMGFactor:
                                 self.rtol, self.maxiter, x0=x0)
         return (y[:, 0] if squeeze else y), info
 
+    @span("eigd.factor.apply", work=columns)
     def mv_warm(self, x, x0):
         """Accurate solve with a warm-start iterate (see ``_pcg``)."""
         y, _ = self.mv_info(x, x0=x0)
@@ -637,10 +641,12 @@ class GridMGFactor:
         y, _ = self._pcg32(x.to(torch.float32), rtol, maxiter)
         return y[:, 0] if squeeze else y
 
+    @span("eigd.factor.apply", work=columns)
     def approx_mv(self, x):
         """Preconditioner-quality f32 solve for mixed-precision ladders."""
         return self._solve32(x, self.approx_rtol, self.approx_maxiter)
 
+    @span("eigd.factor.apply", work=columns)
     def sweep_mv(self, x):
         """Forward-sweep apply channel: the f32 solve at (sweep_rtol,
         sweep_maxiter), each defaulting to its approx_* value."""
@@ -649,6 +655,7 @@ class GridMGFactor:
               else self.sweep_maxiter)
         return self._solve32(x, rt, mi)
 
+    @span("eigd.factor.apply", work=columns)
     def precond_mv(self, x):
         """ONE f32 V-cycle: the raw preconditioner apply."""
         squeeze = x.ndim == 1
