@@ -205,14 +205,16 @@ class BucklingTopologyAnalysis:
 
         gnx, gny = self.grid_shape
         b = 2 * (gny + 1)
-        D, E = grid_block_tridiag(mats, gnx, gny, ndof=2)
-        D = D + torch.diag_embed(extra_diag.reshape(gnx + 1, b))
+        blocks = list(grid_block_tridiag(mats, gnx, gny, ndof=2))
+        torch.diagonal(blocks[0], dim1=1, dim2=2).add_(
+            extra_diag.reshape(gnx + 1, b))
         cls_ = (BCRFactor if self.factor_kind.startswith("bcr")
                 else BlockTridiagFactor)
         if not self.factor_kind.endswith("_f32"):
-            return cls_.from_blocks(D, E)
-        inner = cls_.from_blocks(D.to(torch.float32), E.to(torch.float32))
-        del D, E
+            return cls_.from_owned_blocks(blocks)
+        blocks[0] = blocks[0].to(torch.float32)
+        blocks[1] = blocks[1].to(torch.float32)
+        inner = cls_.from_owned_blocks(blocks)
         op = GridStencilOperator.from_element_operator(
             ElementOperator(mats, self.dofs, self.nvars), self.grid_shape,
             ndof=2, extra_diag=extra_diag)

@@ -403,8 +403,10 @@ class CRM:
         cls_ = (BCRFactor if self.factor_kind.startswith("bcr")
                 else BlockTridiagFactor)
         if not self.factor_kind.endswith("_f32"):
-            return cls_.from_blocks(*block_tridiag_from_dof_groups(
+            blocks = list(block_tridiag_from_dof_groups(
                 shifted, self.dofs, None, self.nb, self.b))
+            del shifted
+            return cls_.from_owned_blocks(blocks)
         dd = torch.diagonal(shifted, dim1=1, dim2=2)
         diag = scatter_rows(dd.reshape(-1), self.dofs.reshape(-1),
                             self.nvars)
@@ -412,14 +414,13 @@ class CRM:
         se = s[self.dofs]
         scaled = (shifted * se[:, :, None] * se[:, None, :]).to(
             torch.float32)
-        D, E = block_tridiag_from_dof_groups(scaled, self.dofs, None,
-                                             self.nb, self.b)
+        blocks = list(block_tridiag_from_dof_groups(scaled, self.dofs, None,
+                                                    self.nb, self.b))
         del scaled
         if cls_ is BCRFactor:
-            inner = cls_.from_blocks(D, E, jitter=self.factor_jitter)
+            inner = cls_.from_owned_blocks(blocks, jitter=self.factor_jitter)
         else:  # the block Cholesky takes no jitter
-            inner = cls_.from_blocks(D, E)
-        del D, E
+            inner = cls_.from_owned_blocks(blocks)
         op = ElementOperator(shifted, self.dofs, self.nvars)
         return PCGFactor(inner, op, s, mask=self.free_mask,
                          tol=self.factor_tol, maxiter=self.factor_maxiter,

@@ -79,10 +79,11 @@ def block_factor_fn(kind, grid_shape, ndof, refine_options=None):
     def factor_fn(A, B, sig, mode):
         shifted = A.mats - sig * B.mats
         if not kind.endswith("_f32"):
-            return cls_.from_blocks(*grid_block_tridiag(shifted, gnx, gny,
-                                                        ndof=ndof))
-        inner = cls_.from_blocks(*grid_block_tridiag(
-            shifted.to(torch.float32), gnx, gny, ndof=ndof))
+            blocks = list(grid_block_tridiag(shifted, gnx, gny, ndof=ndof))
+            del shifted
+            return cls_.from_owned_blocks(blocks)
+        inner = cls_.from_owned_blocks(list(grid_block_tridiag(
+            shifted.to(torch.float32), gnx, gny, ndof=ndof)))
         op = GridStencilOperator(shifted, A.dofs, A.n,
                                  stencil_from_elements(shifted, gnx, gny,
                                                        ndof),

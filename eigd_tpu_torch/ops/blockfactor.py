@@ -76,7 +76,10 @@ def block_tridiag_from_dof_groups(mats, dofs, group_of_dof, nb, b):
     mats : (nelems, d, d); dofs : (nelems, d) global DOF indices, with the
     DOFs of a group contiguous: dof = group*b + offset. Returns D (nb, b, b)
     and E (nb-1, b, b) with E_i = A[group i+1, group i]. Zero diagonal
-    entries (padding, masked DOFs) become 1 so the Cholesky exists.
+    entries (padding, masked DOFs) become 1, added in place, so the
+    Cholesky exists. D and E are views of buffers of nb + 1 blocks, whose
+    last block takes the scatter's masked entries; no other tensor of
+    their size is made.
     """
     del group_of_dof  # implied by the contiguous dof = group*b + off layout
     gi = dofs // b
@@ -94,7 +97,8 @@ def block_tridiag_from_dof_groups(mats, dofs, group_of_dof, nb, b):
                  torch.where(lower, mats, zero), accumulate=True)
     D, E = D[:nb], E[:nb - 1]
     fix = (torch.diagonal(D, dim1=1, dim2=2) == 0.0).to(mats.dtype)
-    return D + torch.diag_embed(fix), E
+    torch.diagonal(D, dim1=1, dim2=2).add_(fix)
+    return D, E
 
 
 def _cholesky(S):
@@ -124,6 +128,15 @@ class BlockTridiagFactor:
     def from_blocks(cls, D, E, store_dtype=None):
         """Factorize in the blocks' dtype, and optionally store the factor
         in a narrower one (f32; wrap it with RefinedFactor)."""
+        return cls.from_owned_blocks([D, E], store_dtype)
+
+    @classmethod
+    def from_owned_blocks(cls, blocks, store_dtype=None):
+        """``from_blocks`` of blocks = [D, E], a list this empties: D and
+        E are freed before the factor's blocks are stacked, unless the
+        caller holds them too."""
+        D, E = blocks
+        blocks.clear()
         nb, b = D.shape[0], D.shape[1]
         # S_i = D_i - F_{i-1} F_{i-1}^T, L_i = chol(S_i), F_i = E_i L_i^-T
         Linvs, Fs = [], []
@@ -134,8 +147,11 @@ class BlockTridiagFactor:
             if i < nb - 1:
                 F_prev = E[i] @ Linv.T
                 Fs.append(F_prev)
+        del D, E
         Linv_all = torch.stack(Linvs)
+        Linvs.clear()
         F_sub = torch.stack(Fs) if nb > 1 else None
+        Fs.clear()
         if store_dtype is not None:
             Linv_all = Linv_all.to(store_dtype)
             F_sub = F_sub.to(store_dtype) if F_sub is not None else None
@@ -214,17 +230,35 @@ class BCRFactor:
 
     @classmethod
     def from_blocks(cls, D, E, min_blocks=1, store_dtype=None, jitter=0.0):
-        nb, b = D.shape[0], D.shape[1]
+        """The factor of the blocks D (nb, b, b) and E (nb-1, b, b), which
+        the caller keeps (``from_owned_blocks`` takes them over)."""
+        return cls.from_owned_blocks([D, E], min_blocks, store_dtype,
+                                     jitter)
+
+    @classmethod
+    def from_owned_blocks(cls, blocks, min_blocks=1, store_dtype=None,
+                          jitter=0.0):
+        """The factor of blocks = [D, E], a list this empties. Holding the
+        only references, the build frees each level's D once its Dinv is
+        formed and its E once the next level's E is, so level 0 holds at
+        most the input, the next level's diagonal blocks and two n_odd
+        temporaries (the odd blocks' Cholesky factor and its inverse). The
+        products are the plain loop's, operand for operand, so the stored
+        blocks are the same bits whoever holds the input."""
+        Dc, Ec = blocks
+        blocks.clear()
+        nb, b = Dc.shape[0], Dc.shape[1]
         if store_dtype is not None:
-            D = D.to(store_dtype)
-            E = E.to(store_dtype)
+            Dc = Dc.to(store_dtype)
+            Ec = Ec.to(store_dtype)
         levels = []
-        Dc, Ec = D, E
         while Dc.shape[0] > max(1, min_blocks):
             nb_c = Dc.shape[0]
             n_odd = nb_c // 2
             n_even = nb_c - n_odd
+            Dn = Dc[0::2].clone()
             Dinv = cls._inv_spd(Dc[1::2], jitter)
+            del Dc
             E_left = Ec[0::2][:n_odd]  # E_{2k}
             E_right = Ec[1::2]  # E_{2k+1}
             if E_right.shape[0] < n_odd:  # nb_c even: last odd has no right
@@ -235,13 +269,13 @@ class BCRFactor:
 
             # D' on the evens: minus HR_{k-1}^T E_right_{k-1}^T (k >= 1)
             # and minus HL_k^T E_left_k (k < n_odd)
-            Dn = Dc[0::2].clone()
             n_l = min(n_odd, n_even - 1)
             Dn[1:1 + n_l] -= (HR.mT @ E_right.mT)[:n_l]
             Dn[:n_odd] -= HL.mT @ E_left
             # E' couples even k -> k+1 while odd 2k+1 and even 2k+2 exist
             n_enew = n_even - 1
             En = (HR[:n_enew].mT @ E_left[:n_enew]).neg_()
+            del Ec, E_left, E_right
 
             levels.append((Dinv, HL, HR))
             Dc, Ec = Dn, En

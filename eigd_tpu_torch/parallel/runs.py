@@ -306,8 +306,8 @@ def serial_nf_objective(nx, ny, N, m, device="cuda"):
                 fem.mass_matrix(rhoE, He, detJ, dofs, nvars))
 
     def factor_fn(A, B, sig, mode):
-        return BCRFactor.from_blocks(*grid_block_tridiag(
-            A.mats - sig * B.mats, nx, ny, ndof=2))
+        return BCRFactor.from_owned_blocks(list(grid_block_tridiag(
+            A.mats - sig * B.mats, nx, ny, ndof=2)))
 
     rigid = torch.zeros((3, nvars), dtype=torch.float64, device=device)
     rigid[0, 0::2] = 1.0
