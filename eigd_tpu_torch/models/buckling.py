@@ -40,10 +40,32 @@ from ..ops.autodiff import (EigProblem, EighGenConfig, eigh_gen, kernels_on,
                             solve_spd)
 from ..ops.operators import DenseOperator, ElementOperator
 from ..ops.stencil import GridStencilOperator
-from ..ops.sync import span
+from ..ops.sync import host_bool, host_flags, span
 from .natural_frequency import weakly
 
 SCALABLE_KINDS = ("bcr_f32", "bcr", "blocktridiag", "blocktridiag_f32")
+# the shift's cut when the shifted factor is found indefinite, and the
+# most cuts a solve makes (then the factor's failure is not the shift's);
+# the range of sigma / BLF_1 a solve leaves alone, and where the shift
+# goes from outside it (examples/buckling.py's 0.8 BLF_1)
+SHIFT_BACKOFF = 0.5
+SHIFT_CUTS = 30
+SHIFT_BAND = (0.6, 0.95)
+SHIFT_MARGIN = 0.8
+
+
+class ShiftAboveFirstLoad(ArithmeticError):
+    """K + sigma G is not positive definite: the shift lies above the first
+    load factor, where the buckling mode's spectral map does not hold."""
+
+
+def _held(fac):
+    """Whether a block factor of an SPD matrix held (a 0-d bool tensor). A
+    block whose Schur complement is not SPD turns NaN (``_cholesky``), and
+    every later level depends on it, so the last level's blocks show it."""
+    fac = getattr(fac, "inner", fac)  # RefinedFactor's f32 factor
+    last = fac.last_Dinv if hasattr(fac, "last_Dinv") else fac.Linv[-1]
+    return torch.isfinite(last).all()
 
 
 def _chol_solve(L, b):
@@ -227,9 +249,15 @@ class BucklingTopologyAnalysis:
         return self._structured_factor(Km, self.fixed_mask)
 
     def _pencil_factor(self, A, B, sig, mode):
-        """(K + sigma G)^{-1} for the buckling pencil (A = G, B = K-hat)."""
+        """(K + sigma G)^{-1} for the buckling pencil (A = G, B = K-hat).
+        Raises ``ShiftAboveFirstLoad`` where the factor did not hold: the
+        design has moved the first load factor below the shift (one host
+        decision, ``HOST_SYNCS["buckling_shift"]``)."""
         assert mode == "buckling"
-        return self._structured_factor(B.mats + sig * A.mats, B.extra_diag)
+        fac = self._structured_factor(B.mats + sig * A.mats, B.extra_diag)
+        if not host_bool(_held(fac), "buckling_shift"):
+            raise ShiftAboveFirstLoad(f"K + {sig!r} G is not SPD")
+        return fac
 
     def _v0(self, theta):
         """A uniform start vector on [-1, 1) from a seeded
@@ -280,6 +308,11 @@ class BucklingTopologyAnalysis:
         """Solve at ``self.x`` and hold the autograd graph of the solve for
         ``finalize_adjoint``, releasing the previous one first.
 
+        The shift follows the first load factor BLF_1, which a closed
+        design loop moves (``_solve_shifted``). The eigenpairs do not
+        depend on the shift; ``solve_sigma`` is the held solve's, ``sigma``
+        and ``profile["sigma"]`` the next solve's.
+
         With ``Ntarget`` set, the smallest N >= Ntarget whose load factors
         N and N+1 are distinct is picked, and the solve keeps N + 1 modes
         (the extra one shows the boundary): a window too small to show it
@@ -290,8 +323,7 @@ class BucklingTopologyAnalysis:
         t0 = time.perf_counter()
         self._graph = None
         x = self.x.detach().requires_grad_(True)
-        with torch.enable_grad():
-            lam, Qr, comp = self._solve_fn(x)
+        lam, Qr, comp = self._solve_shifted(x)
         self._graph = (x, lam, Qr, comp)
         self.lam, self.Qr = lam.detach(), Qr.detach()
         self.compliance_val = comp.detach()
@@ -317,6 +349,45 @@ class BucklingTopologyAnalysis:
                 self._build_cfg()
                 return self.initialize(store=store)
         return None
+
+    def _solve_shifted(self, x):
+        """``_solve_fn(x)`` at a shift that suits the design's BLF_1.
+
+        On the masked factor kinds a shift found above BLF_1
+        (``ShiftAboveFirstLoad``) is cut by ``SHIFT_BACKOFF`` and the solve
+        runs again, at most ``SHIFT_CUTS`` times. A solve whose sigma / BLF_1 ends outside
+        ``SHIFT_BAND`` moves the shift to ``SHIFT_MARGIN`` BLF_1 (one
+        counted host decision a solve, ``HOST_SYNCS["buckling_shift"]``):
+        from below the band the solve runs again there, since the
+        single-vector Lanczos at a fixed m converges the wanted pairs the
+        worse the farther the shift lies below them; from above it the
+        next solve takes the new shift."""
+        cuts = 0
+        while True:
+            try:
+                with torch.enable_grad():
+                    out = self._solve_fn(x)
+            except ShiftAboveFirstLoad:
+                cuts += 1
+                if cuts > SHIFT_CUTS:
+                    raise
+                self._shift(self.sigma * SHIFT_BACKOFF)
+                continue
+            self.solve_sigma = self.sigma
+            ratio = self.sigma / out[0][0].detach()
+            below, above = host_flags(torch.stack(
+                [ratio < SHIFT_BAND[0], ratio > SHIFT_BAND[1]]),
+                "buckling_shift")
+            if below or above:
+                self._shift(SHIFT_MARGIN * out[0][0].item())
+            if not below:
+                return out
+            del out  # free this solve's factors before the next one
+
+    def _shift(self, sigma):
+        self.sigma = sigma
+        self.profile["sigma"] = sigma
+        self._build_cfg()
 
     def initialize_adjoint(self):
         self.xb = torch.zeros_like(self.x)

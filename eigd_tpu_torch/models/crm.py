@@ -502,6 +502,18 @@ class CRM:
         self.profile["tangent solution time"] = self._elapsed(t0)
         return out
 
+    # -- frequencies ---------------------------------------------------------
+
+    def get_frequencies(self):
+        return torch.sqrt(self.lam)
+
+    def add_frequency_derivatives(self, omegab):
+        """lamb += the seeds omegab of the frequencies sqrt(lam), as
+        ``TopologyAnalysis.add_frequency_derivatives``."""
+        omegab = torch.as_tensor(omegab, dtype=self.lam.dtype,
+                                 device=self.device)
+        self.lamb = self.lamb + 0.5 * omegab / torch.sqrt(self.lam)
+
     # -- modal compliance ----------------------------------------------------
 
     def tip_load(self):

@@ -349,11 +349,16 @@ class SolveSPD(torch.autograd.Function):
     """u = K(theta)^{-1} f through a factor that autograd does not see
     (``solve_spd``). The factor is built in ``forward`` and handed to
     ``setup_context`` through ``box``, an object that torch.func's pytree
-    handling passes through as it is (a list would be copied)."""
+    handling passes through as it is (a list would be copied). Under a
+    profiler ``forward`` is the span ``eigd.static.solve`` (the factor's
+    build inside it is an ``eigd.factor.build``) and ``backward``, the
+    path adjoint, is ``eigd.static.adjoint``."""
 
     @staticmethod
+    @span("eigd.static.solve")
     def forward(theta, f, build_op, build_factor, box):
-        fac = build_factor(theta)
+        with span("eigd.factor.build"):
+            fac = build_factor(theta)
         box.fac = fac
         return fac.mv(f)
 
@@ -366,6 +371,7 @@ class SolveSPD(torch.autograd.Function):
         ctx.save_for_forward(theta, output)
 
     @staticmethod
+    @span("eigd.static.adjoint")
     def backward(ctx, u_bar):
         theta, u = ctx.saved_tensors
         w = ctx.fac.mv(u_bar)

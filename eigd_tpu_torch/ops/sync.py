@@ -20,13 +20,16 @@ is read from flags the last decision already brought to the host.
 Spans (``span``) mark the boundaries of the program's layers: the
 protocol calls (``eigd.protocol.*``), the shift-invert factor's build and
 applies (``eigd.factor.*``), the Lanczos eigensolve (``eigd.eig.lanczos``),
-the adjoint solve (``eigd.adjoint.solve``). They record only while a torch
-profiler records: then each is a ``record_function`` range on the
-profiler's timeline, and adds its host time to ``SPAN_S[name]``
-(inclusive), ``SELF_S[name]`` (less the spans inside it), its entries to
-``SPAN_N[name]`` and its work to ``SPAN_WORK[name]``; each host decision
-adds the seconds the host was blocked in it to ``WAIT_S[site]``. With no
-profiler a span is a null context and a decision reads no clock.
+the adjoint solve (``eigd.adjoint.solve``), and the static solve of a
+preload with its path adjoint (``eigd.static.solve``, holding its
+factor's ``eigd.factor.build``, and ``eigd.static.adjoint``). They record
+only while a torch profiler records: then each is a ``record_function``
+range on the profiler's timeline, and adds its host time to
+``SPAN_S[name]`` (inclusive), ``SELF_S[name]`` (less the spans inside
+it), its entries to ``SPAN_N[name]`` and its work to ``SPAN_WORK[name]``;
+each host decision adds the seconds the host was blocked in it to
+``WAIT_S[site]``. With no profiler a span is a null context and a
+decision reads no clock.
 """
 
 import collections

@@ -699,3 +699,48 @@ def test_port_start_vector_and_ntarget(analyses, sigma0):
     tt.initialize()
     assert tt.N == 4
     assert rel(tt.BLF.numpy(), blf_j) <= 1e-8
+
+
+@pytest.mark.parametrize("kind", ["bcr", "bcr_f32", "blocktridiag"])
+@pytest.mark.parametrize("ratio", [1.5, 3.5, 0.3, 0.98])
+def test_shift_follows_the_first_load(analyses, kind, ratio):
+    """A shift above the first load factor (K + sigma G indefinite: the
+    masked block factor does not hold) is cut by SHIFT_BACKOFF until it
+    lies below it, and the solve runs again; a solve whose shift ends
+    outside SHIFT_BAND of BLF_1 moves it to SHIFT_MARGIN BLF_1, and runs
+    again from below the band (0.3 BLF_1), not from above it (0.98).
+    Either way the load factors and the xb of every pass are JAX's at
+    sigma0 (1e-8), with one ``buckling_shift`` decision a pencil factor
+    built and one a solve."""
+    from eigd_tpu_torch.ops import sync
+
+    blf_j, _, xbs_j = analyses["cholesky"][1]
+    blf1 = float(blf_j[0])
+    tt = tbk.make_buckling_model(nx=NX, ny=NY, N=N, sigma=ratio * blf1,
+                                 factor_kind=kind, device="cpu")
+    sync.clear()
+    blf, _, xbs = _passes(tt, lambda a: a)
+    cuts = max(0, int(np.ceil(np.log(ratio) / np.log(1 / tbk.SHIFT_BACKOFF))))
+    shifts = sync.HOST_SYNCS["buckling_shift"]
+    sync.clear()
+    assert shifts == cuts + (4 if ratio < tbk.SHIFT_BAND[0] else 2)
+    if ratio < 1.0:
+        assert tt.sigma == pytest.approx(tbk.SHIFT_MARGIN * blf1, rel=1e-8)
+    else:
+        assert tt.sigma == ratio * blf1 * tbk.SHIFT_BACKOFF**cuts
+    assert tt.profile["sigma"] == tt.sigma
+    assert rel(blf, blf_j) <= 1e-8
+    for a, b in zip(xbs, xbs_j):
+        assert rel(a, b) <= 1e-8
+
+
+def test_shift_cuts_end_where_the_factor_never_holds():
+    """A design whose factors never hold (a NaN density) raises
+    ShiftAboveFirstLoad after SHIFT_CUTS cuts, and does not loop."""
+    tt = tbk.make_buckling_model(nx=NX, ny=NY, N=N, sigma=1.0,
+                                 factor_kind="bcr", device="cpu")
+    tt.x = tt.x.clone()
+    tt.x[3] = float("nan")
+    with pytest.raises(tbk.ShiftAboveFirstLoad):
+        tt.initialize()
+    assert tt.sigma == tbk.SHIFT_BACKOFF**tbk.SHIFT_CUTS

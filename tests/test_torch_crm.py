@@ -334,6 +334,39 @@ def test_f64_bcr_under_the_approx_sweep():
     assert rel(xb, xb_j) <= 1e-8
 
 
+def test_frequency_derivatives_match_central_difference():
+    """add_frequency_derivatives seeds lamb with omegab / (2 sqrt(lam)), as
+    the NF model does: p @ xb of the KS-min (ks 1) of the frequencies
+    against a Richardson-4 central difference (h 1e-3, 5e-4) on the f64
+    BCR factor (1e-6; the eigenvalues' noise puts plain central
+    differences at 1e-7 at best here)."""
+    tt = tcrm.CRM(factor_kind="bcr", device="cpu", **KW)
+    x0 = tt.x.clone() * (1.0 + 0.1 * torch.as_tensor(P3))
+
+    def ks_min(omega):
+        low = torch.min(omega)
+        return low - torch.log(torch.sum(torch.exp(-(omega - low))))
+
+    def value(x):
+        tt.x = x
+        tt.initialize()
+        return float(ks_min(tt.get_frequencies()))
+
+    value(x0)
+    tt.initialize_adjoint()
+    omega = tt.get_frequencies().requires_grad_(True)
+    (omegab,) = torch.autograd.grad(ks_min(omega), omega)
+    tt.add_frequency_derivatives(omegab)
+    tt.finalize_adjoint()
+    p = torch.as_tensor(np.random.default_rng(4).uniform(-1, 1, 5)) * x0
+
+    def central(h):
+        return (value(x0 + h * p) - value(x0 - h * p)) / (2 * h)
+
+    fd = (4.0 * central(5e-4) - central(1e-3)) / 3.0
+    assert abs(float(p @ tt.xb) - fd) <= 1e-6 * abs(fd)
+
+
 def test_element_operator_promotes_like_jax():
     """ElementOperator.mv of an f32 block on f64 element matrices computes
     in f64, as JAX's einsum promotes (the mixed SIBK ladder hands it f32
