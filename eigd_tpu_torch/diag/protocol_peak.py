@@ -1,17 +1,25 @@
 """Peak device memory of a design iteration by phase, in the benchmark's
-two models, and of the natural-frequency optimisation protocol at 263,682
-DOF with a second adjoint pass.
+three models, and of the natural-frequency optimisation protocol at
+263,682 DOF with a second adjoint pass.
 
 ``crm_86k`` and ``nf_263k`` (``phases``): the CRM of ``diag/configs.py``
 ``crm_86k`` on the f64 ``bcr`` factor with the modal-compliance seeds
 (``eigbench``'s ``crm_86k.compliance``), and ``make_model(**bench_263k())``
 with the KS-min (ks 1) of the frequencies seeded into the eigenvalues
-(``nf_263k.ksfreq``). One warm iteration, then a measured one whose peak
-of allocated memory is read in each phase: the assembly and the factor
-build (``initialize`` up to the end of the span ``eigd.factor.build``), the
+(``nf_263k.ksfreq``). ``buckle_263k``: ``make_buckling_model`` with the
+keywords of ``diag/configs.py`` ``buckle_263k`` (f64 ``bcr``, the shift
+0.8 BLF_1 of the dense pilot) at its start design, with the KS of the
+inverse load factors (ks 100) plus the tanh eigenvector aggregate (rho 1)
+over the y-DOFs of the loaded nodes (``buckle_263k.ksagg``'s seeds). One
+warm iteration, then a measured one whose peak of allocated memory is
+read in each phase: in buckling the static solve (the preload's factor
+build and apply, ``_static``), then the assembly and the factor build
+(``initialize`` up to the end of the span ``eigd.factor.build``), the
 Lanczos solve (the span ``eigd.eig.lanczos``), the rest of ``initialize``
 with ``initialize_adjoint``, the seeds, and ``finalize_adjoint``; each
-phase's peak counts what was allocated when it began. ``minfreq``:
+phase's peak counts what was allocated when it began, and a phase entered
+again (the buckling model's second solve at a moved shift) reads its
+highest. ``minfreq``:
 ``MinFreqOpt``'s initialize, initialize_adjoint and finalize_adjoint on
 the ``bench_263k`` model (a warm protocol first, then a measured one): the
 peak over the three calls and what stays allocated after them; then a
@@ -27,7 +35,8 @@ package: from the root of that checkout,
 and from the root of this one, on a machine with a CUDA device (every
 mode when none is named):
 
-    python -m eigd_tpu_torch.diag.protocol_peak [crm_86k] [nf_263k] [minfreq]
+    python -m eigd_tpu_torch.diag.protocol_peak [crm_86k] [nf_263k]
+        [buckle_263k] [minfreq]
 """
 
 from __future__ import annotations
@@ -38,11 +47,11 @@ import sys
 import torch
 
 from eigd_tpu_torch.diag.common import card, require_cuda
-from eigd_tpu_torch.diag.configs import bench_263k, crm_86k
+from eigd_tpu_torch.diag.configs import bench_263k, buckle_263k, crm_86k
 from eigd_tpu_torch.ops import autodiff
 
-PHASES = ("assembly+build", "lanczos", "initialize rest", "seeds",
-          "finalize_adjoint")
+PHASES = ("static solve", "assembly+build", "lanczos", "initialize rest",
+          "seeds", "finalize_adjoint")
 # the span whose end closes a phase, and the phase it opens
 SPAN_ENDS = {"eigd.factor.build": ("assembly+build", "lanczos"),
              "eigd.eig.lanczos": ("lanczos", "initialize rest")}
@@ -62,7 +71,8 @@ class PhasePeaks:
     def end(self):
         if self.open is not None:
             torch.cuda.synchronize()
-            self.peaks[self.open] = torch.cuda.max_memory_allocated()
+            self.peaks[self.open] = max(self.peaks.get(self.open, 0),
+                                        torch.cuda.max_memory_allocated())
             self.open = None
 
     def begin(self, name):
@@ -132,15 +142,45 @@ def nf_cell(ks=1.0):
     return model, seeds
 
 
+def buckle_cell(ks=100.0, agg=1.0):
+    from eigd_tpu_torch.diag.configs import BUCKLE_PILOT, SIGMA_MARGIN
+    from eigd_tpu_torch.models.buckling import first_blf, make_buckling_model
+
+    pilot = make_buckling_model(sigma=1.0, device="cuda", **BUCKLE_PILOT)
+    sigma = SIGMA_MARGIN * first_blf(pilot)
+    model = make_buckling_model(device="cuda", **buckle_263k(sigma))
+    # the load is in x: the y-DOFs of the loaded nodes follow its DOFs
+    dofs = (torch.nonzero(model.f).flatten() + 1).cpu().numpy()
+
+    def seeds():
+        value = (model.eval_ks_buckling(ks)
+                 + model.get_eigenvector_aggregate(agg, dofs))
+        model.add_ks_buckling_derivative(1.0, ks)
+        model.add_eigenvector_aggregate_derivative(1.0, agg, dofs)
+        return value
+
+    return model, seeds
+
+
 def phases(name, make):
     model, seeds = make()
     meter = PhasePeaks()
+    static = getattr(model, "_static", None)
+    if static is not None:  # the buckling model's preload: a phase apart
+
+        def watched(rhoE):
+            meter.begin("static solve")
+            out = static(rhoE)
+            meter.begin("assembly+build")
+            return out
+
+        model._static = watched
     for run in ("warm", "measured"):
         meter.peaks = {}
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated()
         with watched_spans(meter):
-            meter.begin(PHASES[0])
+            meter.begin(PHASES[0] if static else PHASES[1])
             model.initialize()
             model.initialize_adjoint()
             meter.begin("seeds")
@@ -188,6 +228,7 @@ def minfreq():
 
 MODES = {"crm_86k": lambda: phases("crm_86k", crm_cell),
          "nf_263k": lambda: phases("nf_263k", nf_cell),
+         "buckle_263k": lambda: phases("buckle_263k", buckle_cell),
          "minfreq": minfreq}
 
 

@@ -220,7 +220,8 @@ class BucklingTopologyAnalysis:
 
     def _structured_factor(self, mats, extra_diag):
         """BCR / block-tridiagonal factor of masked element matrices plus a
-        diagonal (a unit one on the fixed DOFs). The "_f32" kinds refine
+        diagonal (a unit one on the fixed DOFs). The f64 BCR applies its
+        level-0 couplings through their stencil; the "_f32" kinds refine
         the f32 factor in f64 against the stencil, on K2 on the card."""
         from ..ops.blockfactor import (BCRFactor, BlockTridiagFactor,
                                        RefinedFactor, grid_block_tridiag)
@@ -230,16 +231,18 @@ class BucklingTopologyAnalysis:
         blocks = list(grid_block_tridiag(mats, gnx, gny, ndof=2))
         torch.diagonal(blocks[0], dim1=1, dim2=2).add_(
             extra_diag.reshape(gnx + 1, b))
-        cls_ = (BCRFactor if self.factor_kind.startswith("bcr")
-                else BlockTridiagFactor)
-        if not self.factor_kind.endswith("_f32"):
-            return cls_.from_owned_blocks(blocks)
-        blocks[0] = blocks[0].to(torch.float32)
-        blocks[1] = blocks[1].to(torch.float32)
-        inner = cls_.from_owned_blocks(blocks)
+        if self.factor_kind == "blocktridiag":
+            return BlockTridiagFactor.from_owned_blocks(blocks)
         op = GridStencilOperator.from_element_operator(
             ElementOperator(mats, self.dofs, self.nvars), self.grid_shape,
             ndof=2, extra_diag=extra_diag)
+        if self.factor_kind == "bcr":
+            return BCRFactor.from_owned_blocks(blocks, coupling=op)
+        cls_ = (BCRFactor if self.factor_kind.startswith("bcr")
+                else BlockTridiagFactor)
+        blocks[0] = blocks[0].to(torch.float32)
+        blocks[1] = blocks[1].to(torch.float32)
+        inner = cls_.from_owned_blocks(blocks)
         if kernels_on(self._kernel_mv, self.device):
             op = op.with_kernels()
         return RefinedFactor(inner, op)

@@ -68,7 +68,8 @@ def block_factor_fn(kind, grid_shape, ndof, refine_options=None):
     built from f32 blocks (the f64 blocks are the peak-memory term at 1M
     DOF) and refined to f64 by a ``RefinedFactor`` (``refine_options``:
     its tol, max_refine) against the shifted f64 stencil, which runs on K2
-    when the operators carry the kernels' planes."""
+    when the operators carry the kernels' planes. The f64 ``bcr`` factor
+    applies its level-0 couplings through the shifted stencil."""
     from ..ops.blockfactor import (BCRFactor, BlockTridiagFactor,
                                    RefinedFactor, grid_block_tridiag)
     from ..ops.stencil import stencil_from_elements
@@ -78,6 +79,14 @@ def block_factor_fn(kind, grid_shape, ndof, refine_options=None):
 
     def factor_fn(A, B, sig, mode):
         shifted = A.mats - sig * B.mats
+        if kind == "bcr":
+            op = GridStencilOperator(
+                None, None, A.n,
+                stencil_from_elements(shifted, gnx, gny, ndof), grid_shape,
+                ndof)
+            blocks = list(grid_block_tridiag(shifted, gnx, gny, ndof=ndof))
+            del shifted
+            return BCRFactor.from_owned_blocks(blocks, coupling=op)
         if not kind.endswith("_f32"):
             blocks = list(grid_block_tridiag(shifted, gnx, gny, ndof=ndof))
             del shifted

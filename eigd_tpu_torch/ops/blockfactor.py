@@ -9,7 +9,9 @@ on the card), as JAX's are XLA's, outside any kernel of the package:
 * ``BlockTridiagFactor``: block Cholesky, one Python step per grid line
   (JAX's ``lax.scan``), applied by two sweeps of 2*nb small GEMMs. Fine on
   the CPU and in tests; host-bound at scale, where BCR takes its place.
-* ``BCRFactor``: block cyclic reduction, log2(nb) levels of batched work.
+* ``BCRFactor``: block cyclic reduction, log2(nb) levels of batched work;
+  on a grid, level 0's couplings are applied through the matrix's own
+  stencil (K2 on the card) instead of being stored.
 * ``RefinedFactor``: an f32 factor refined to f64 accuracy against the
   matrix-free f64 operator (on the card the stencil on K2).
 * ``PCGFactor``: f64 PCG preconditioned by an f32 factor of the
@@ -206,13 +208,23 @@ class BCRFactor:
                      - E_i^T Dinv_{i+1} f_{i+1}
     Stored per level (odd-indexed, batched): Dinv, HL = Dinv E_{j-1},
     HR = Dinv E_j^T; the even rows' weights are their transposes.
+
+    A factor built with ``coupling`` (the matrix's grid stencil) stores
+    level 0 as (Dinv, None, None): there E is the stencil's line-to-line
+    taps, so with z = x on the even lines and 0 on the odd ones, the odd
+    lines of A z are E_{j-1} x_{j-1} + E_j^T x_{j+1}, and with w = Dinv f
+    on the odd lines and 0 on the even ones, the even lines of A w are
+    the even rows' sums. Level 0 then costs two stencil calls an apply
+    (the span ``eigd.factor.coupling``) in place of four block sets.
     """
 
-    def __init__(self, levels, last_Dinv, nb, b):
+    def __init__(self, levels, last_Dinv, nb, b, coupling=None):
         self.levels = tuple(levels)  # ((Dinv, HL, HR), ...) per level
         self.last_Dinv = last_Dinv  # (nb_last, b, b)
         self.nb = nb
         self.b = b
+        # GridStencilOperator applying level 0's couplings, or None
+        self.coupling = coupling
 
     @staticmethod
     def _inv_spd(Dblocks, jitter=0.0):
@@ -237,14 +249,23 @@ class BCRFactor:
 
     @classmethod
     def from_owned_blocks(cls, blocks, min_blocks=1, store_dtype=None,
-                          jitter=0.0):
-        """The factor of blocks = [D, E], a list this empties. Holding the
-        only references, the build frees each level's D once its Dinv is
-        formed and its E once the next level's E is, so level 0 holds at
-        most the input, the next level's diagonal blocks and two n_odd
-        temporaries (the odd blocks' Cholesky factor and its inverse). The
-        products are the plain loop's, operand for operand, so the stored
-        blocks are the same bits whoever holds the input."""
+                          jitter=0.0, coupling=None):
+        """The factor of blocks = [D, E], a list this empties. Every level
+        runs in one order: Dinv, the evens' clone, HR with its updates of
+        D' and E', E cut down to a copy of E_left, HL last. Holding the
+        only references, the build frees D once the clone is made and E
+        once E_left is copied, so a level holds at most its input and two
+        n_odd temporaries (the odd blocks' Cholesky factor and its
+        inverse) beside what it keeps. Each product and each update of D'
+        is the plain loop's, operand for operand and in its order, so the
+        stored blocks are the same bits whoever holds the input.
+
+        ``coupling``, a ``GridStencilOperator`` of the same f64 matrix
+        whose grid lines are the blocks, makes level 0 keep Dinv alone and
+        apply its couplings through the stencil (class docstring): its HL
+        and HR are freed once the next level's blocks are formed. The
+        factor keeps the stencil's f64 planes alone
+        (``GridStencilOperator.planes_only``)."""
         Dc, Ec = blocks
         blocks.clear()
         nb, b = Dc.shape[0], Dc.shape[1]
@@ -253,33 +274,42 @@ class BCRFactor:
             Ec = Ec.to(store_dtype)
         levels = []
         while Dc.shape[0] > max(1, min_blocks):
-            nb_c = Dc.shape[0]
-            n_odd = nb_c // 2
-            n_even = nb_c - n_odd
-            Dn = Dc[0::2].clone()
+            n_odd = Dc.shape[0] // 2
+            # a coupled factor's level 0 stores Dinv alone
+            keep = coupling is None or bool(levels)
             Dinv = cls._inv_spd(Dc[1::2], jitter)
+            Dn = Dc[0::2].clone()
             del Dc
-            E_left = Ec[0::2][:n_odd]  # E_{2k}
-            E_right = Ec[1::2]  # E_{2k+1}
-            if E_right.shape[0] < n_odd:  # nb_c even: last odd has no right
-                E_right = torch.cat([E_right, E_right.new_zeros(
-                    (n_odd - E_right.shape[0], b, b))])
-            HL = Dinv @ E_left
-            HR = Dinv @ E_right.mT
-
+            E_right = Ec[1::2]  # E_{2k+1}: the odd lines with a right
+            n_r = E_right.shape[0]  # neighbour, n_odd - 1 when nb_c even
+            HR = Dinv[:n_r] @ E_right.mT
             # D' on the evens: minus HR_{k-1}^T E_right_{k-1}^T (k >= 1)
-            # and minus HL_k^T E_left_k (k < n_odd)
-            n_l = min(n_odd, n_even - 1)
-            Dn[1:1 + n_l] -= (HR.mT @ E_right.mT)[:n_l]
-            Dn[:n_odd] -= HL.mT @ E_left
+            Dn[1:1 + n_r] -= HR.mT @ E_right.mT
             # E' couples even k -> k+1 while odd 2k+1 and even 2k+2 exist
-            n_enew = n_even - 1
-            En = (HR[:n_enew].mT @ E_left[:n_enew]).neg_()
-            del Ec, E_left, E_right
-
-            levels.append((Dinv, HL, HR))
+            En = (HR.mT @ Ec[0::2][:n_r]).neg_()
+            del E_right
+            if not keep:
+                del HR
+            E_left = Ec[0::2][:n_odd].clone()  # E_{2k}
+            del Ec
+            HL = Dinv @ E_left
+            # and minus HL_k^T E_left_k (k < n_odd)
+            Dn[:n_odd] -= HL.mT @ E_left
+            del E_left
+            if keep:
+                if n_r < n_odd:  # the last odd line's HR is zero
+                    HR = torch.cat([HR, HR.new_zeros((n_odd - n_r, b, b))])
+                levels.append((Dinv, HL, HR))
+                del HR
+            else:
+                levels.append((Dinv, None, None))
+            del HL
             Dc, Ec = Dn, En
-        return cls(levels, cls._inv_spd(Dc, jitter), nb, b)
+        if coupling is not None and levels:
+            coupling = coupling.planes_only()
+        else:
+            coupling = None
+        return cls(levels, cls._inv_spd(Dc, jitter), nb, b, coupling)
 
     @property
     def shape(self):
@@ -292,14 +322,41 @@ class BCRFactor:
 
     @property
     def nbytes(self):
-        """Bytes the stored factor holds."""
-        blocks = [t for lv in self.levels for t in lv] + [self.last_Dinv]
-        return sum(t.numel() * t.element_size() for t in blocks)
+        """Bytes the stored factor holds, the coupling's planes included."""
+        blocks = [t for lv in self.levels for t in lv if t is not None]
+        held = sum(t.numel() * t.element_size()
+                   for t in blocks + [self.last_Dinv])
+        return held + (0 if self.coupling is None else self.coupling.nbytes)
+
+    def _solve_coupled(self, f):
+        """Level 0 through the stencil: g = Dinv f_odd; the evens' right-
+        hand sides less the even lines of A w (w: g on the odd lines);
+        x_odd = g - Dinv (A z)_odd (z: x_even on the even lines). The two
+        stencil calls are the span ``eigd.factor.coupling``, whose work
+        counts the apply's columns once."""
+        Dinv = self.levels[0][0]
+        nb, b, k = f.shape
+        g = Dinv @ f[1::2]
+        w = f.new_zeros((nb, b, k))
+        w[1::2] = g
+        with span("eigd.factor.coupling", k):
+            Aw = _StencilApply.apply(w.reshape(nb * b, k), self.coupling)
+        del w
+        x_even = self._solve(1, f[0::2] - Aw.reshape(nb, b, k)[0::2])
+        del Aw
+        x = f.new_zeros((nb, b, k))
+        x[0::2] = x_even
+        with span("eigd.factor.coupling"):
+            Az = _StencilApply.apply(x.reshape(nb * b, k), self.coupling)
+        x[1::2] = g - Dinv @ Az.reshape(nb, b, k)[1::2]
+        return x
 
     def _solve(self, idx, f):
         """f: (nb_level, b, k) right-hand sides at this level."""
         if idx == len(self.levels):
             return self.last_Dinv @ f
+        if idx == 0 and self.coupling is not None:
+            return self._solve_coupled(f)
         Dinv, HL, HR = self.levels[idx]
         n_odd = Dinv.shape[0]
         f_odd = f[1::2]
@@ -337,6 +394,31 @@ class BCRFactor:
     @span("eigd.factor.apply", work=columns)
     def __call__(self, x):
         return self.mv(x)
+
+
+class _StencilApply(torch.autograd.Function):
+    """y = A v through a fixed operator's ``mv`` (a factor's coupling
+    stencil, K2 on the card) as autograd and torch.func see it. A is
+    linear and symmetric, so its tangent map and its adjoint are A again,
+    applied through this same function: ``mv`` runs on untracked tensors
+    under any nesting of transforms (the static solve's forward-mode rule
+    applies the factor to a tangent)."""
+
+    @staticmethod
+    def forward(v, op):
+        return op.mv(v)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.op = inputs[1]
+
+    @staticmethod
+    def backward(ctx, y_bar):
+        return _StencilApply.apply(y_bar, ctx.op), None
+
+    @staticmethod
+    def jvp(ctx, dv, _):
+        return _StencilApply.apply(dv, ctx.op)
 
 
 class RefinedFactor:

@@ -132,6 +132,25 @@ class GridStencilOperator:
             Wp32=cuda_stencil.stencil_planes(W, self.ndof, torch.float32),
             Wp64=Wp64)
 
+    def planes_only(self):
+        """Copy holding the f64 planes that K2 reads and nothing else, W a
+        view of them: ``mv`` sends a CUDA f64 input to K2 and a CPU one to
+        the plain stencil. What a factor keeps of its matrix to apply the
+        couplings (``BCRFactor``'s ``coupling``)."""
+        Wp64 = cuda_stencil.stencil_planes(self.W.detach(), self.ndof,
+                                           torch.float64)
+        return GridStencilOperator(
+            None, None, self.n, cuda_stencil.planes_to_stencil(Wp64,
+                                                               self.ndof),
+            self.grid_shape, self.ndof, Wp64=Wp64)
+
+    @property
+    def nbytes(self):
+        """Bytes of the stencil and its planes, each storage once."""
+        held = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in (self.W, self.Wp32, self.Wp64) if t is not None}
+        return sum(held.values())
+
     def to_dense(self):
         """The dense (n, n) matrix, summed from the element matrices, plus
         the extra diagonal."""

@@ -8,6 +8,7 @@ reference is computed once, in a module-scoped fixture.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -274,6 +275,161 @@ def test_bcr_owned_build_peak_memory():
         peak = max(peak, total)
     block = b * b * 8
     lean = (2 * (nb + 1) + n_even + 2 * n_odd) * block
+    assert total == f.nbytes
+    assert peak <= 1.05 * lean, (peak / block, lean / block)
+    # no operator: every level stores Dinv, HL and HR of its odd lines
+    assert f.coupling is None
+    for lv in f.levels:
+        assert len(lv) == 3 and all(x is not None for x in lv)
+        assert len({x.shape for x in lv}) == 1
+
+
+@functools.lru_cache(maxsize=None)
+def _coupled_case(kind, nx, ny):
+    """(mats, extra_diag, stencil operator) of an nx x ny plane-stress
+    grid: "shifted", the unmasked K + 10 M of ``_plane``; "pencil", the
+    buckling column's masked K-hat + sigma G at its start design with the
+    unit diagonal on the clamped DOFs, sigma 0.8 of its first load
+    factor."""
+    from eigd_tpu_torch.fem import assembly as tfem
+    from eigd_tpu_torch.models.buckling import first_blf, make_buckling_model
+
+    if kind == "shifted":
+        mats, dofs, n = _plane(nx, ny)
+        mats, dofs, extra = t(mats), t(dofs), None
+    else:
+        topo = make_buckling_model(nx=nx, ny=ny, N=2, factor_kind="bcr",
+                                   device="cpu")
+        sigma = 0.8 * first_blf(topo)
+        rhoE = tfem.element_density(topo.fltr.apply(topo.x), topo.conn)
+        K = topo._op_K(rhoE)
+        u = torch.linalg.solve(K.to_dense(), topo.f * topo.free_mask)
+        G = topo._op_G(rhoE, u)
+        mats = K.mats + sigma * G.mats
+        dofs, n, extra = topo.dofs, topo.nvars, topo.fixed_mask
+    op = TGrid.from_element_operator(TElementOperator(mats, dofs, n),
+                                     (nx, ny), ndof=2, extra_diag=extra)
+    return mats, extra, op
+
+
+def _grid_blocks(mats, extra, nx, ny):
+    D, E = tbf.grid_block_tridiag(mats, nx, ny, ndof=2)
+    if extra is not None:
+        torch.diagonal(D, dim1=1, dim2=2).add_(extra.reshape(nx + 1, -1))
+    return D, E
+
+
+@pytest.mark.parametrize("k", [1, 6])
+@pytest.mark.parametrize("nx, ny", [(8, 4), (16, 8), (17, 9)])
+@pytest.mark.parametrize("kind", ["shifted", "pencil"])
+def test_bcr_stencil_coupling_matches_the_stored_one(kind, nx, ny, k):
+    """A BCR factor given its matrix's stencil (``coupling``) against the
+    plain one, f64, over grids whose line counts are odd and even at some
+    level: the applies agree to 1e-10 and each one's residual is within
+    10x of the plain one's; Dinv of every level, HL and HR of levels 1 on
+    and last_Dinv are the plain build's bits; level 0 holds neither HL nor
+    HR; ``nbytes`` is the stored blocks plus the stencil's planes."""
+    mats, extra, op = _coupled_case(kind, nx, ny)
+    D, E = _grid_blocks(mats, extra, nx, ny)
+    plain = tbf.BCRFactor.from_blocks(D, E)
+    coupled = tbf.BCRFactor.from_owned_blocks([D.clone(), E.clone()],
+                                              coupling=op)
+    assert plain.coupling is None and coupled.coupling is not None
+    assert len(coupled.levels) == len(plain.levels) >= 4
+    Dinv, HL, HR = coupled.levels[0]
+    assert HL is None and HR is None
+    assert torch.equal(_bits(Dinv), _bits(plain.levels[0][0]))
+    for got, ref in zip(coupled.levels[1:], plain.levels[1:]):
+        for x, y in zip(got, ref):
+            assert torch.equal(_bits(x), _bits(y))
+    assert torch.equal(_bits(coupled.last_Dinv), _bits(plain.last_Dinv))
+
+    stored = sum(x.numel() * 8 for lv in coupled.levels for x in lv
+                 if x is not None) + coupled.last_Dinv.numel() * 8
+    planes = coupled.coupling.Wp64
+    assert planes.shape == (36, nx + 1, ny + 1) and planes.is_contiguous()
+    assert coupled.coupling.Wp32 is None and coupled.coupling.mats is None
+    assert coupled.nbytes == stored + planes.numel() * 8
+    assert plain.nbytes - coupled.nbytes == sum(
+        x.numel() * 8 for x in plain.levels[0][1:]) - planes.numel() * 8
+
+    A = op.to_dense()
+    x = torch.randn((op.n, k), generator=torch.Generator().manual_seed(k),
+                    dtype=torch.float64)
+    y_plain, y = plain.mv(x), coupled.mv(x)
+    assert rel(y, y_plain) < 1e-10
+    res = [float(torch.linalg.norm(A @ v - x) / torch.linalg.norm(x))
+           for v in (y_plain, y)]
+    assert res[1] <= 10.0 * res[0], res
+
+
+def test_bcr_stencil_coupling_under_autograd_and_forward_mode():
+    """Where autograd or ``torch.func`` tracks the right-hand side (the
+    static solve's jvp rule applies the factor to a tangent), the coupled
+    apply still goes through the operator's ``mv`` (K2 on the card), and
+    hands it only untracked tensors: torch.func.jvp, a backward pass and
+    a jvp of a grad give the factor's own applies."""
+    mats, extra, op = _coupled_case("pencil", 8, 4)
+    D, E = _grid_blocks(mats, extra, 8, 4)
+    f = tbf.BCRFactor.from_owned_blocks([D, E], coupling=op)
+    gen = torch.Generator().manual_seed(5)
+    x, dx, yb = (torch.randn((op.n, 2), generator=gen, dtype=torch.float64)
+                 for _ in range(3))
+    y, dy, xb = f.mv(x), f.mv(dx), f.mv(yb)  # the factor is symmetric
+
+    mv, seen = f.coupling.mv, []
+
+    def watched(v):
+        assert not (torch.is_grad_enabled() and v.requires_grad)
+        assert not torch._C._functorch.is_functorch_wrapped_tensor(v)
+        seen.append(v.shape)
+        return mv(v)
+
+    f.coupling.mv = watched
+    got_y, got_dy = torch.func.jvp(f.mv, (x,), (dx,))
+    assert rel(got_y, y) < 1e-14 and rel(got_dy, dy) < 1e-14
+    assert len(seen) == 4  # two calls each for the value and the tangent
+    xl = x.clone().requires_grad_(True)
+    with torch.enable_grad():
+        (got_xb,) = torch.autograd.grad(f.mv(xl), xl, yb)
+    assert rel(got_xb, xb) < 1e-12
+    assert len(seen) == 8
+
+    # d/dv <yb, F v^2> = 2 v (F yb); its tangent along dx is 2 dx (F yb)
+    def h(v):
+        return torch.sum(yb * f.mv(v * v))
+
+    grad, hess_dx = torch.func.jvp(torch.func.grad(h), (x,), (dx,))
+    assert rel(grad, 2.0 * x * xb) < 1e-12
+    assert rel(hess_dx, 2.0 * dx * xb) < 1e-12
+    assert len(seen) > 8
+
+
+def test_bcr_stencil_coupled_build_peak_memory():
+    """The assembly and coupled build of a 65-line grid (b 48, f64, the
+    shifted plane stress) under torch.profiler's memory records, the
+    stencil made before: the running total peaks at level 0 within 5% of
+    D + E and two n_odd temporaries, one plain factor's worth, and what
+    stays allocated is ``nbytes`` (the stored blocks and the stencil's
+    planes)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    nx, ny = 64, 23
+    mats, extra, op = _coupled_case("shifted", nx, ny)
+    with profile(activities=[ProfilerActivity.CPU],
+                 profile_memory=True) as prof:
+        f = tbf.BCRFactor.from_owned_blocks(
+            list(_grid_blocks(mats, extra, nx, ny)), coupling=op)
+    records = sorted((e for e in prof.profiler.kineto_results.events()
+                      if e.name() == "[memory]"), key=lambda e: e.start_ns())
+    total = peak = 0
+    for e in records:
+        total += e.nbytes()
+        peak = max(peak, total)
+    nb, b = f.nb, f.b
+    block = b * b * 8
+    lean = (nb + (nb - 1) + 2 * (nb // 2)) * block
+    assert f.levels[0][1] is None
     assert total == f.nbytes
     assert peak <= 1.05 * lean, (peak / block, lean / block)
 

@@ -33,6 +33,8 @@ SPANS = ("eigd.protocol.initialize", "eigd.protocol.finalize_adjoint",
          "eigd.factor.build", "eigd.eig.lanczos", "eigd.factor.apply",
          "eigd.adjoint.solve")
 STATIC = ("eigd.static.solve", "eigd.static.adjoint")
+# the f64 BCR factors of the buckling model apply level 0 through the stencil
+COUPLING = "eigd.factor.coupling"
 NEW = ("SPAN_S", "SELF_S", "SPAN_N", "SPAN_WORK", "WAIT_S")
 READERS = ("model_s", "lanczos_s", "factor_build_s", "factor_apply_s",
            "factor_columns", "adjoint_solve_s", "host_wait_s")
@@ -124,7 +126,8 @@ def test_silent_without_a_profiler(runs):
 
 def test_every_span_is_a_user_annotation(runs):
     seen = {name for name, _, _, user in runs.events if user}
-    spans = set(SPANS) | (set(STATIC) if runs.kind == "buckle" else set())
+    spans = set(SPANS) | (set(STATIC) | {COUPLING} if runs.kind == "buckle"
+                          else set())
     assert spans <= seen
     assert set(runs.on["SPAN_N"]) == spans
     assert runs.on["SPAN_N"]["eigd.protocol.initialize"] == 1
@@ -291,3 +294,26 @@ def test_static_readers(runs, name, span):
     else:
         total = runs.on["SPAN_S"][span]
         assert total > 0 and got == pytest.approx(total / 2, rel=1e-12)
+
+
+def test_coupled_columns_equal_factor_columns(runs):
+    """``coupled_columns``: None with no trace, and in nf (dense factor)
+    and crm (dof-group BCR, no stencil), which never enter the span; in
+    buckling, whose two f64 BCR factors both apply level 0 through the
+    stencil, it equals ``factor_columns``, two coupling spans an apply."""
+    read = importlib.import_module("eigbench.metrics.coupled_columns").read
+    on = runs.on
+    sync.clear()
+    for counter in NEW:
+        getattr(sync, counter).update(on[counter])
+    try:
+        assert read(types.SimpleNamespace(trace=None, iterations=2)) is None
+        got = read(types.SimpleNamespace(trace={}, iterations=2))
+    finally:
+        sync.clear()
+    if runs.kind != "buckle":
+        assert got is None and COUPLING not in on["SPAN_N"]
+        return
+    columns = on["SPAN_WORK"]["eigd.factor.apply"]
+    assert columns > 0 and got == pytest.approx(columns / 2, rel=1e-12)
+    assert on["SPAN_N"][COUPLING] == 2 * on["SPAN_N"]["eigd.factor.apply"]
