@@ -494,6 +494,45 @@ class RefinedFactor:
         return self.mv(x)
 
 
+def blocked_pcg(y, r, opmv, pre, tol2, maxiter, site, sums=None):
+    """Blocked PCG from the iterate y and its residual r, (n, k) blocks,
+    with per-column alpha and beta: a column under ``tol2`` freezes, and
+    the loop ends when all are or at ``maxiter``, one host decision an
+    iteration (``host_flags`` at ``site``). ``sums`` as in
+    ``multigrid.flexible_pcg``. Returns (y, per-column r2, iterations).
+    """
+    if sums is None:
+        def sums(*pairs):
+            return [torch.sum(a * b, dim=0) for a, b in pairs]
+
+    z = pre(r)
+    rz, r2 = sums((r, z), (r, r))
+    p = z
+    k = 0
+    while k < maxiter:
+        if not host_flags(torch.any(r2 > tol2)[None], site)[0]:
+            why = "converged"
+            break
+        active = r2 > tol2
+        Ap = opmv(p)
+        pAp, = sums((p, Ap))
+        alpha = torch.where(active, rz / torch.where(pAp == 0.0, 1.0, pAp),
+                            0.0)
+        y = y + alpha[None, :] * p
+        r = r - alpha[None, :] * Ap
+        z = pre(r)
+        rzn, r2 = sums((r, z), (r, r))
+        beta = torch.where(active, rzn / torch.where(rz == 0.0, 1.0, rz),
+                           0.0)
+        p = z + beta[None, :] * p
+        rz = rzn
+        k += 1
+    else:
+        why = "maxiter"
+    loop_exit(site, why, k)
+    return y, r2, k
+
+
 class PCGFactor:
     """Robust mixed-precision solve for ill-conditioned (thin-shell)
     systems: f64 PCG preconditioned by an f32 factor of the equilibrated
@@ -506,9 +545,7 @@ class PCGFactor:
         rows there are completed with the identity, as the unit diagonals
         of the preconditioner's blocks are, so the system stays SPD.
 
-    Blocked right-hand sides advance together with per-column alpha and
-    beta; converged columns freeze; the loop ends when every column is
-    under ``tol`` or at ``maxiter``, one host read an iteration.
+    Every solve is ``blocked_pcg`` on the blocked right-hand sides.
     """
 
     def __init__(self, inner, op, s, mask=None, tol=1e-12, maxiter=200,
@@ -572,8 +609,8 @@ class PCGFactor:
         x = x.to(f32)
         nrm2 = torch.sum(x * x, dim=0)
         tol2 = (tol * tol) * torch.clamp(nrm2, min=1e-30)
-        y, _, _ = self._loop(torch.zeros_like(x), x, opmv, pre, tol2,
-                             maxiter, "pcg_factor_f32")
+        y, _, _ = blocked_pcg(torch.zeros_like(x), x, opmv, pre, tol2,
+                              maxiter, "pcg_factor_f32")
         return y[:, 0] if squeeze else y
 
     def _opmv(self, p):
@@ -581,38 +618,6 @@ class PCGFactor:
         if self.mask is not None:
             y = y + (1.0 - self.mask)[:, None] * p
         return y
-
-    @staticmethod
-    def _loop(y, r, opmv, pre, tol2, maxiter, site):
-        """The blocked PCG iteration from (y, r); returns (y, r2, k)."""
-        z = pre(r)
-        rz = torch.sum(r * z, dim=0)
-        p = z
-        r2 = torch.sum(r * r, dim=0)
-        k = 0
-        while k < maxiter:
-            if not host_flags(torch.any(r2 > tol2)[None], site)[0]:
-                why = "converged"
-                break
-            active = r2 > tol2
-            Ap = opmv(p)
-            pAp = torch.sum(p * Ap, dim=0)
-            alpha = torch.where(active, rz / torch.where(pAp == 0.0, 1.0,
-                                                         pAp), 0.0)
-            y = y + alpha[None, :] * p
-            r = r - alpha[None, :] * Ap
-            r2 = torch.sum(r * r, dim=0)
-            z = pre(r)
-            rzn = torch.sum(r * z, dim=0)
-            beta = torch.where(active, rzn / torch.where(rz == 0.0, 1.0, rz),
-                               0.0)
-            p = z + beta[None, :] * p
-            rz = rzn
-            k += 1
-        else:
-            why = "maxiter"
-        loop_exit(site, why, k)
-        return y, r2, k
 
     @span("eigd.factor.apply", work=columns)
     def precond_mv(self, r):
@@ -646,8 +651,8 @@ class PCGFactor:
         else:
             y = x0.to(torch.float64)
             r = x - self._opmv(y)
-        y, r2, k = self._loop(y, r, self._opmv, self._pre, tol2, maxiter,
-                              "pcg_factor")
+        y, r2, k = blocked_pcg(y, r, self._opmv, self._pre, tol2, maxiter,
+                               "pcg_factor")
         info = {"niter": k,
                 "res": torch.sqrt(r2 / torch.clamp(nrm2, min=1e-300))}
         return (y[:, 0] if squeeze else y), info

@@ -265,6 +265,13 @@ def pdot(x, y, axis=None):
     return psum(x @ y, axis)
 
 
+def col_sums(axis):
+    """The PCG loops' ``sums`` over sharded (n, k) blocks: for each pair
+    (a, b) the column sums of a * b, one all-reduce for all pairs."""
+    return lambda *pairs: psum(torch.stack(
+        [torch.sum(a * b, dim=0) for a, b in pairs]), axis)
+
+
 def ppermute(x, axis, perm):
     """Counterpart of ``jax.lax.ppermute``: each (src, dst) pair of
     ``perm`` sends src's x to dst; a rank no pair sends to gets zeros."""

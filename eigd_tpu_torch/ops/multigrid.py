@@ -270,6 +270,91 @@ def cheb_smooth_planes(mv, dinvp, lmax, x, b, degree=3, lo_frac=0.25):
 
 
 # ---------------------------------------------------------------------------
+# Flexible PCG
+# ---------------------------------------------------------------------------
+
+
+def flexible_pcg(bb, mv, precond, rtol, maxiter, stag_bad, site, x0=None,
+                 sums=None):
+    """Flexible PCG on the columns of bb, axis 1 of (n, k) vectors or of
+    (ndof, k, X, Y) planes: residuals and updates in bb.dtype, ``precond``
+    the f32 V-cycle. Converged columns freeze (alpha zeroed); the SPD guard
+    takes the unpreconditioned direction for a column whose V-cycle output
+    is not a descent direction. The loop ends when every column is under
+    ``rtol`` of its ||b|| (also from a warm start x0), after ``stag_bad``
+    iterations without a 10% gain on the best total residual, or at
+    ``maxiter``: one host decision an iteration (``host_flags`` at
+    ``site``). ``sums(*pairs)`` gives the per-column sums of a * b for
+    each pair (a, b): local by default, one all-reduce on a sharded factor.
+
+    Returns (x, info) with info = dict(niter, res2 = per-column final
+    squared residuals, tol2).
+    """
+    dtype = bb.dtype
+    col = (1, -1) + (1,) * (bb.ndim - 2)  # a per-column value, broadcast
+    if sums is None:
+        dims = tuple(d for d in range(bb.ndim) if d != 1)
+
+        def sums(*pairs):
+            return [torch.sum(a * b, dim=dims) for a, b in pairs]
+
+    def M(r, r_old=None):
+        """(z, r.z, r.r[, r_old.z]) under the guard, from one ``sums``
+        call: where it takes r for z, r.r for r.z and r_old.r for r_old.z."""
+        z = precond(r).to(dtype)
+        pairs = ((r, z), (r, r))
+        if r_old is not None:
+            pairs += ((r_old, z), (r_old, r))
+        s = sums(*pairs)
+        ok = s[0] > 0.0
+        out = [torch.where(ok.view(col), z, r), torch.where(ok, s[0], s[1]),
+               s[1]]
+        if r_old is not None:
+            out.append(torch.where(ok, s[2], s[3]))
+        return out
+
+    b2, = sums((bb, bb))
+    tol2 = (rtol * rtol) * torch.clamp(b2, min=1e-300)
+    x = M(bb)[0] if x0 is None else x0.to(dtype)
+    r = bb - mv(x)
+    z, rz, r2 = M(r)
+    p = z
+    best = torch.sum(r2)
+    bad = torch.zeros((), dtype=torch.int64, device=bb.device)
+    k = 0
+    while k < maxiter:
+        unconverged, fresh = host_flags(
+            torch.stack([torch.any(r2 > tol2), bad < stag_bad]), site)
+        if not (unconverged and fresh):
+            why = "stagnated" if unconverged else "converged"
+            break
+        Ap = mv(p)
+        pAp, = sums((p, Ap))
+        active = (r2 > tol2).to(dtype)
+        pos = pAp > 0
+        alpha = torch.where(pos, rz / torch.where(pos, pAp, 1.0),
+                            0.0) * active
+        x = x + p * alpha.view(col)
+        r_new = r - Ap * alpha.view(col)
+        z, rz_new, r2, rz_old = M(r_new, r)
+        # flexible (Polak-Ribiere) beta: robust to the slightly varying f32
+        # V-cycle preconditioner inside f64 CG
+        nz = rz != 0.0
+        beta = torch.where(nz, (rz_new - rz_old) / torch.where(nz, rz, 1.0),
+                           0.0)
+        p = z + p * beta.view(col)
+        improving = torch.sum(r2) < 0.9 * best
+        bad = torch.where(improving, 0, bad + 1)
+        best = torch.minimum(best, torch.sum(r2))
+        r, rz = r_new, rz_new
+        k += 1
+    else:
+        why = "maxiter"
+    loop_exit(site, why, k)
+    return x, {"niter": k, "res2": r2, "tol2": tol2}
+
+
+# ---------------------------------------------------------------------------
 # The factor
 # ---------------------------------------------------------------------------
 
@@ -423,151 +508,34 @@ class GridMGFactor:
 
     # -- PCG solvers ----------------------------------------------------------
 
-    def _pcg_exit(self, r2, tol2, bad, site):
-        """The PCG loop's decision, from one host wait: None to go on,
-        "converged" when every column is under tol2, "stagnated" after
-        ``stag_bad`` iterations without a 10% gain."""
-        unconverged, fresh = host_flags(
-            torch.stack([torch.any(r2 > tol2), bad < self.stag_bad]), site)
-        if unconverged and fresh:
-            return None
-        return "stagnated" if unconverged else "converged"
-
     def _pcg(self, bb, matvec, rtol, maxiter, x0=None):
-        """Flexible PCG; residuals/updates in bb.dtype, preconditioner f32.
+        """``flexible_pcg`` on (n, k) vectors with the f32 V-cycle as the
+        preconditioner; residuals and updates in bb.dtype."""
+        site = "pcg_f64" if bb.dtype == torch.float64 else "pcg_f32"
+        return flexible_pcg(bb, matvec, self._apply_vcycle32, rtol, maxiter,
+                            self.stag_bad, site, x0=x0)
 
-        bb : (n, k). Converged columns freeze (their alpha is zeroed). The
-        stagnation exit fires after ``stag_bad`` consecutive iterations
-        without a 10% reduction of the best total residual. The SPD guard
-        falls back to the unpreconditioned direction for a column whose
-        V-cycle output is not a descent direction. x0 is an optional warm
-        start; the convergence gate stays relative to ||b|| per column.
-
-        Returns (x, info) with info = dict(niter, res2 = per-column final
-        squared residuals, tol2).
-        """
-        dtype = bb.dtype
-
-        def M(r):
-            z = self._apply_vcycle32(r).to(dtype)
-            rz = torch.sum(r * z, dim=0)
-            ok = rz > 0.0
-            return (torch.where(ok[None, :], z, r),
-                    torch.where(ok, rz, torch.sum(r * r, dim=0)))
-
-        b2 = torch.sum(bb * bb, dim=0)
-        tol2 = (rtol * rtol) * torch.clamp(b2, min=1e-300)
-
-        x = M(bb)[0] if x0 is None else x0.to(dtype)
-        r = bb - matvec(x)
-        z, rz = M(r)
-        p = z
-        r2 = torch.sum(r * r, dim=0)
-        best = torch.sum(r2)
-        bad = torch.zeros((), dtype=torch.int64, device=bb.device)
-        site = "pcg_f64" if dtype == torch.float64 else "pcg_f32"
-        k = 0
-        while k < maxiter:
-            why = self._pcg_exit(r2, tol2, bad, site)
-            if why:
-                break
-            Ap = matvec(p)
-            pAp = torch.sum(p * Ap, dim=0)
-            active = (r2 > tol2).to(dtype)
-            pos = pAp > 0
-            alpha = torch.where(pos, rz / torch.where(pos, pAp, 1.0),
-                                0.0) * active
-            x = x + p * alpha[None, :]
-            r_new = r - Ap * alpha[None, :]
-            z, rz_new = M(r_new)
-            # flexible (Polak-Ribiere) beta: robust to the slightly varying
-            # f32 V-cycle preconditioner inside f64 CG
-            rz_flex = rz_new - torch.sum(r * z, dim=0)
-            nz = rz != 0.0
-            beta = torch.where(nz, rz_flex / torch.where(nz, rz, 1.0), 0.0)
-            p = z + p * beta[None, :]
-            r2 = torch.sum(r_new * r_new, dim=0)
-            improving = torch.sum(r2) < 0.9 * best
-            bad = torch.where(improving, 0, bad + 1)
-            best = torch.minimum(best, torch.sum(r2))
-            r, rz = r_new, rz_new
-            k += 1
-        else:
-            why = "maxiter"
-        loop_exit(site, why, k)
-        return x, {"niter": k, "res2": r2, "tol2": tol2}
-
-    def _pcg_planes(self, bb, rtol, maxiter):
-        """f32 flexible PCG entirely in channel-plane layout (kernel
-        variant): the V-cycle and the stencil matvec both consume and
-        produce (ndof, k, X, Y) planes, so the layout transposes happen once
-        per solve. Same math and convergence control as ``_pcg``.
+    def _pcg32(self, bb, rtol, maxiter):
+        """f32 ``flexible_pcg``: the vector-layout ``_pcg`` on the plain
+        variant; on the kernel variant in channel-plane layout, where the
+        V-cycle and the stencil matvec both consume and produce
+        (ndof, k, X, Y) planes, so the layout transposes happen once per
+        solve.
 
         bb: (n, k) f32. Returns (x, info) in vector layout.
         """
+        if self.vcycle != "kernel":
+            return self._pcg(bb, self._matvec32, rtol, maxiter)
         nx, ny = self.shapes[0]
         nd = self.ndof
-        bq = cuda_stencil.to_planes(bb, nx, ny, nd)
 
         def mv(xq):
             return cuda_stencil.matvec_planes(self.Wps[0], xq, nx, ny, nd)
 
-        def col_sum(pq, qq):
-            return torch.sum(pq * qq, dim=(0, 2, 3))
-
-        def M(rq):
-            zq = self._vcycle_planes(0, rq)
-            rz = col_sum(rq, zq)
-            ok = rz > 0.0
-            return (torch.where(ok[None, :, None, None], zq, rq),
-                    torch.where(ok, rz, col_sum(rq, rq)))
-
-        b2 = col_sum(bq, bq)
-        tol2 = (rtol * rtol) * torch.clamp(b2, min=1e-300)
-
-        x, _ = M(bq)
-        r = bq - mv(x)
-        z, rz = M(r)
-        p = z
-        r2 = col_sum(r, r)
-        best = torch.sum(r2)
-        bad = torch.zeros((), dtype=torch.int64, device=bb.device)
-        k = 0
-        while k < maxiter:
-            why = self._pcg_exit(r2, tol2, bad, "pcg_f32_planes")
-            if why:
-                break
-            Ap = mv(p)
-            pAp = col_sum(p, Ap)
-            active = (r2 > tol2).to(torch.float32)
-            pos = pAp > 0
-            alpha = torch.where(pos, rz / torch.where(pos, pAp, 1.0),
-                                0.0) * active
-            x = x + p * alpha[None, :, None, None]
-            r_new = r - Ap * alpha[None, :, None, None]
-            z, rz_new = M(r_new)
-            rz_flex = rz_new - col_sum(r, z)
-            nz = rz != 0.0
-            beta = torch.where(nz, rz_flex / torch.where(nz, rz, 1.0), 0.0)
-            p = z + p * beta[None, :, None, None]
-            r2 = col_sum(r_new, r_new)
-            improving = torch.sum(r2) < 0.9 * best
-            bad = torch.where(improving, 0, bad + 1)
-            best = torch.minimum(best, torch.sum(r2))
-            r, rz = r_new, rz_new
-            k += 1
-        else:
-            why = "maxiter"
-        loop_exit("pcg_f32_planes", why, k)
-        return (cuda_stencil.from_planes(x, nx, ny, nd),
-                {"niter": k, "res2": r2, "tol2": tol2})
-
-    def _pcg32(self, bb, rtol, maxiter):
-        """f32 PCG dispatch: plane-resident on the kernel variant, the
-        vector-layout ``_pcg`` otherwise."""
-        if self.vcycle == "kernel":
-            return self._pcg_planes(bb, rtol, maxiter)
-        return self._pcg(bb, self._matvec32, rtol, maxiter)
+        x, info = flexible_pcg(cuda_stencil.to_planes(bb, nx, ny, nd), mv,
+                               lambda rq: self._vcycle_planes(0, rq), rtol,
+                               maxiter, self.stag_bad, "pcg_f32_planes")
+        return cuda_stencil.from_planes(x, nx, ny, nd), info
 
     def _matvec64(self, x):
         nx, ny = self.shapes[0]
@@ -630,7 +598,7 @@ class GridMGFactor:
 
     @span("eigd.factor.apply", work=columns)
     def mv_warm(self, x, x0):
-        """Accurate solve with a warm-start iterate (see ``_pcg``)."""
+        """Accurate solve with a warm-start iterate (see ``flexible_pcg``)."""
         y, _ = self.mv_info(x, x0=x0)
         return y
 

@@ -31,11 +31,11 @@ from __future__ import annotations
 import torch
 
 from ..ops import cuda_stencil
-from ..ops.collective import all_gather, ppermute, ppermute_multi, pvary
+from ..ops.collective import (all_gather, col_sums, ppermute,
+                              ppermute_multi, pvary)
 from ..ops.multigrid import (GridMGFactor, _cheb_coeffs, estimate_lmax,
-                             galerkin_coarse_stencil)
+                             flexible_pcg, galerkin_coarse_stencil)
 from ..ops.stencil import stencil_matvec
-from ..ops.sync import host_flags, loop_exit
 
 
 def _fwd(n):
@@ -345,78 +345,20 @@ class ShardedGridMGFactor:
         y = cuda_stencil.stencil_matvec32(Wp, xe, L + 1, ny, self.ndof)
         return y[w:(L + 1) * w]
 
-    def _pcg(self, bb, matvec, rtol, maxiter):
-        """Flexible PCG with all-reduced inner products and the sharded
-        V-cycle as preconditioner (the mirror of JAX's ``_pcg``): converged
-        columns freeze, and the loop ends on convergence, after
-        ``stag_bad`` iterations without a 10% gain, or at ``maxiter``. One
-        host decision an iteration, on replicated values; the column sums
-        taken after each V-cycle go out in one all-reduce, so an iteration
-        costs two."""
-        from ..ops.collective import psum
-
-        axis = self.axis
-        dtype = bb.dtype
-
-        def M(r, r_old=None):
-            """(z, r.z, r.r[, r_old.z]) with the descent guard."""
-            z = self._vcycle(r).to(dtype)
-            sums = [torch.sum(r * z, dim=0), torch.sum(r * r, dim=0)]
-            if r_old is not None:
-                sums.append(torch.sum(r_old * z, dim=0))
-            sums = psum(torch.stack(sums), axis)
-            ok = sums[0] > 0.0
-            return (torch.where(ok[None, :], z, r),
-                    torch.where(ok, sums[0], sums[1]), *sums[1:])
-
-        tol2 = (rtol * rtol) * torch.clamp(
-            psum(torch.sum(bb * bb, dim=0), axis), min=1e-300)
-        x = M(bb)[0]
-        r = bb - matvec(x)
-        z, rz, r2 = M(r)
-        p = z
-        best = torch.sum(r2)
-        bad = torch.zeros((), dtype=torch.int64, device=bb.device)
-        site = "mgshard_f64" if dtype == torch.float64 else "mgshard_f32"
-        k = 0
-        while k < maxiter:
-            unconverged, fresh = host_flags(
-                torch.stack([torch.any(r2 > tol2), bad < self.stag_bad]),
-                site)
-            if not (unconverged and fresh):
-                why = "stagnated" if unconverged else "converged"
-                break
-            Ap = matvec(p)
-            pAp = psum(torch.sum(p * Ap, dim=0), axis)
-            active = (r2 > tol2).to(dtype)
-            pos = pAp > 0
-            alpha = torch.where(pos, rz / torch.where(pos, pAp, 1.0),
-                                0.0) * active
-            x = x + p * alpha[None, :]
-            r_new = r - Ap * alpha[None, :]
-            z, rz_new, r2, rz_old = M(r_new, r)
-            rz_flex = rz_new - rz_old
-            nz = rz != 0.0
-            beta = torch.where(nz, rz_flex / torch.where(nz, rz, 1.0), 0.0)
-            p = z + p * beta[None, :]
-            improving = torch.sum(r2) < 0.9 * best
-            bad = torch.where(improving, 0, bad + 1)
-            best = torch.minimum(best, torch.sum(r2))
-            r, rz = r_new, rz_new
-            k += 1
-        else:
-            why = "maxiter"
-        loop_exit(site, why, k)
-        return x
-
     def _solve(self, x, f64, rtol, maxiter):
+        """``ops.multigrid.flexible_pcg`` (f64 or f32) with the sharded
+        V-cycle as the preconditioner and its column sums all-reduced, each
+        call's sums in one all-reduce: two an iteration. Every loop
+        decision reads replicated values, so all ranks leave the loop
+        together."""
         squeeze = x.ndim == 1
         if squeeze:
             x = x[:, None]
-        if f64:
-            y = self._pcg(x.to(torch.float64), self._matvec64, rtol, maxiter)
-        else:
-            y = self._pcg(x.to(torch.float32), self._matvec32, rtol, maxiter)
+        dtype, matvec, site = ((torch.float64, self._matvec64, "mgshard_f64")
+                               if f64 else
+                               (torch.float32, self._matvec32, "mgshard_f32"))
+        y, _ = flexible_pcg(x.to(dtype), matvec, self._vcycle, rtol, maxiter,
+                            self.stag_bad, site, sums=col_sums(self.axis))
         return y[:, 0] if squeeze else y
 
     def mv(self, x):

@@ -37,7 +37,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.collective import all_gather, ppermute, psum, pvary, shard
+from ..ops.collective import (all_gather, col_sums, ppermute, psum, pvary,
+                              shard)
 from ..ops.operators import scatter_rows
 from .grid import (GridPartition, element_gather_index, local_dof_map,
                    make_partition, pad_line_mask)
@@ -226,43 +227,17 @@ class SchwarzPCGFactor:
         """Like ``mv``, with the convergence info: niter, per-column final
         squared residuals and the squared tolerance (an unconverged
         maxiter exit stays visible)."""
-        from ..ops.sync import host_bool, loop_exit
+        from ..ops.blockfactor import blocked_pcg
 
         squeeze = bvec.ndim == 1
         if squeeze:
             bvec = bvec[:, None]
-        axis = self.axis
-
-        def colsum(p, q):
-            return psum(torch.sum(p * q, dim=0), axis)
-
-        tol2 = (self.tol ** 2) * torch.clamp(colsum(bvec, bvec), min=1e-300)
-        x = torch.zeros_like(bvec)
-        r = bvec
-        p = self.btf.mv(bvec)
-        rz = colsum(bvec, p)
-        r2 = colsum(r, r)
-        k = 0
-        while k < self.maxiter and host_bool(torch.any(r2 > tol2),
-                                             "schwarz_pcg"):
-            ap = self.op.mv(p)
-            pap = colsum(p, ap)
-            active = r2 > tol2
-            alpha = torch.where(active & (pap != 0.0),
-                                rz / torch.where(pap == 0.0, 1.0, pap), 0.0)
-            x = x + alpha[None, :] * p
-            r = r - alpha[None, :] * ap
-            z = self.btf.mv(r)
-            # r.z and r.r in one all-reduce
-            rz_new, r2 = psum(torch.stack([torch.sum(r * z, dim=0),
-                                           torch.sum(r * r, dim=0)]), axis)
-            beta = torch.where(rz != 0.0,
-                               rz_new / torch.where(rz == 0.0, 1.0, rz), 0.0)
-            p = torch.where(active[None, :], z + beta[None, :] * p, p)
-            rz = rz_new
-            k += 1
-        loop_exit("schwarz_pcg", "maxiter" if k == self.maxiter
-                  else "converged", k)
+        sums = col_sums(self.axis)
+        tol2 = (self.tol ** 2) * torch.clamp(sums((bvec, bvec))[0],
+                                             min=1e-300)
+        x, r2, k = blocked_pcg(torch.zeros_like(bvec), bvec, self.op.mv,
+                               self.btf.mv, tol2, self.maxiter, "schwarz_pcg",
+                               sums=sums)
         if squeeze:
             x = x[:, 0]
         return x, {"niter": k, "res2": r2, "tol2": tol2}

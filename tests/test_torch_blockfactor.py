@@ -716,3 +716,78 @@ def test_topology_analysis_block_kinds_match_jax(nf_reference, kind):
     assert rel(lam.detach().numpy(), lam_j) < 1e-9
     assert abs(float(v.detach()) - val_j) <= 1e-10 * abs(val_j)
     assert rel(x.grad.numpy(), g_j) < 1e-7
+
+
+def _oracle_loop(y, r, opmv, pre, tol2, maxiter, site, steps):
+    """``PCGFactor._loop`` as it stood before ``blocked_pcg`` replaced it,
+    kept as the oracle; appends its step count to ``steps``."""
+    z = pre(r)
+    rz = torch.sum(r * z, dim=0)
+    p = z
+    r2 = torch.sum(r * r, dim=0)
+    k = 0
+    while k < maxiter:
+        if not torch.any(r2 > tol2)[None].tolist()[0]:
+            break
+        active = r2 > tol2
+        Ap = opmv(p)
+        pAp = torch.sum(p * Ap, dim=0)
+        alpha = torch.where(active, rz / torch.where(pAp == 0.0, 1.0,
+                                                     pAp), 0.0)
+        y = y + alpha[None, :] * p
+        r = r - alpha[None, :] * Ap
+        r2 = torch.sum(r * r, dim=0)
+        z = pre(r)
+        rzn = torch.sum(r * z, dim=0)
+        beta = torch.where(active, rzn / torch.where(rz == 0.0, 1.0, rz),
+                           0.0)
+        p = z + beta[None, :] * p
+        rz = rzn
+        k += 1
+    steps.append(k)
+    return y, r2, k
+
+
+@pytest.mark.parametrize("channel", ["f64", "f64_x0", "f32"])
+@pytest.mark.parametrize("exit_", ["converged", "maxiter"])
+def test_blocked_pcg_bitwise_as_the_loop_it_replaced(grids, monkeypatch,
+                                                     channel, exit_):
+    """PCGFactor on the 10x6 grid's element operator (f64, warm-started
+    f64, the f32 element channel), its loop ``blocked_pcg`` against the
+    loop it replaced run through the same entry point: the solution and
+    the residuals bitwise, the same step count, the same exit. The zero
+    column is frozen from the start."""
+    g = grids["plane10x6"]
+    s = 1.0 / np.sqrt(np.diag(g["dense"]))
+    sb = s.reshape(11, 14)
+    D2 = g["D"] * sb[:, :, None] * sb[:, None, :]
+    E2 = g["E"] * sb[1:, :, None] * sb[:-1, None, :]
+    ft = tbf.PCGFactor(
+        tbf.BCRFactor.from_blocks(t(D2).float(), t(E2).float(), jitter=1e-5),
+        TElementOperator(t(g["mats"]), t(g["dofs"]), g["n"]), t(s))
+    x = np.random.default_rng(5).standard_normal((g["n"], 3))
+    x[:, 2] = 0.0
+    x = t(x)
+    x0 = 0.5 * x if channel == "f64_x0" else None
+    tol = 1e-5 if channel == "f32" else 1e-12
+    maxiter = 1 if exit_ == "maxiter" else 300
+    site = "pcg_factor_f32" if channel == "f32" else "pcg_factor"
+
+    def solve():
+        if channel == "f32":
+            return ft._pcg32(x, tol, maxiter), None
+        return ft._pcg(x, tol, maxiter, x0=x0)
+
+    sync.clear()
+    y, info = solve()
+    assert dict(sync.LOOP_EXITS) == {f"{site}.{exit_}": 1}
+    steps = []
+    monkeypatch.setattr(tbf, "blocked_pcg",
+                        functools.partial(_oracle_loop, steps=steps))
+    y_ref, info_ref = solve()
+    assert torch.equal(y, y_ref)
+    assert steps == [sync.LOOP_STEPS[site]]
+    assert (steps[0] == maxiter) == (exit_ == "maxiter")
+    if info is not None:
+        assert torch.equal(info["res"], info_ref["res"])
+        assert info["niter"] == info_ref["niter"]

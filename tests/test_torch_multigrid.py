@@ -21,6 +21,7 @@ from eigd_tpu.ops.multigrid import stencil_to_dense as j_to_dense
 from eigd_tpu.ops.stencil import stencil_from_elements
 from eigd_tpu_torch.interop import mg_factor_from_numpy
 from eigd_tpu_torch.ops import multigrid as tmg
+from eigd_tpu_torch.ops import sync
 
 torch.set_num_threads(1)
 NX, NY = 32, 16
@@ -178,3 +179,207 @@ def test_f32_factor_solve(problem):
         r = b - dense @ x.double().numpy()
         assert (np.linalg.norm(r, axis=0)
                 <= 1e-5 * np.linalg.norm(b, axis=0)).all()
+
+
+# The flexible PCG loops as they stood before ``flexible_pcg`` replaced
+# them (``GridMGFactor._pcg`` and ``_pcg_planes``), kept as oracles: the
+# one loop must return their x, residuals, step count and exit bitwise.
+
+def _oracle_exit(fac, r2, tol2, bad):
+    unconverged, fresh = torch.stack(
+        [torch.any(r2 > tol2), bad < fac.stag_bad]).tolist()
+    if unconverged and fresh:
+        return None
+    return "stagnated" if unconverged else "converged"
+
+
+def _oracle_pcg(fac, bb, matvec, rtol, maxiter, x0=None):
+    dtype = bb.dtype
+
+    def M(r):
+        z = fac._apply_vcycle32(r).to(dtype)
+        rz = torch.sum(r * z, dim=0)
+        ok = rz > 0.0
+        return (torch.where(ok[None, :], z, r),
+                torch.where(ok, rz, torch.sum(r * r, dim=0)))
+
+    b2 = torch.sum(bb * bb, dim=0)
+    tol2 = (rtol * rtol) * torch.clamp(b2, min=1e-300)
+    x = M(bb)[0] if x0 is None else x0.to(dtype)
+    r = bb - matvec(x)
+    z, rz = M(r)
+    p = z
+    r2 = torch.sum(r * r, dim=0)
+    best = torch.sum(r2)
+    bad = torch.zeros((), dtype=torch.int64, device=bb.device)
+    k = 0
+    while k < maxiter:
+        why = _oracle_exit(fac, r2, tol2, bad)
+        if why:
+            break
+        Ap = matvec(p)
+        pAp = torch.sum(p * Ap, dim=0)
+        active = (r2 > tol2).to(dtype)
+        pos = pAp > 0
+        alpha = torch.where(pos, rz / torch.where(pos, pAp, 1.0),
+                            0.0) * active
+        x = x + p * alpha[None, :]
+        r_new = r - Ap * alpha[None, :]
+        z, rz_new = M(r_new)
+        rz_flex = rz_new - torch.sum(r * z, dim=0)
+        nz = rz != 0.0
+        beta = torch.where(nz, rz_flex / torch.where(nz, rz, 1.0), 0.0)
+        p = z + p * beta[None, :]
+        r2 = torch.sum(r_new * r_new, dim=0)
+        improving = torch.sum(r2) < 0.9 * best
+        bad = torch.where(improving, 0, bad + 1)
+        best = torch.minimum(best, torch.sum(r2))
+        r, rz = r_new, rz_new
+        k += 1
+    else:
+        why = "maxiter"
+    return x, k, r2, why
+
+
+def _oracle_pcg_planes(fac, bb, rtol, maxiter):
+    from eigd_tpu_torch.ops import cuda_stencil
+
+    nx, ny = fac.shapes[0]
+    nd = fac.ndof
+    bq = cuda_stencil.to_planes(bb, nx, ny, nd)
+
+    def mv(xq):
+        return cuda_stencil.matvec_planes(fac.Wps[0], xq, nx, ny, nd)
+
+    def col_sum(pq, qq):
+        return torch.sum(pq * qq, dim=(0, 2, 3))
+
+    def M(rq):
+        zq = fac._vcycle_planes(0, rq)
+        rz = col_sum(rq, zq)
+        ok = rz > 0.0
+        return (torch.where(ok[None, :, None, None], zq, rq),
+                torch.where(ok, rz, col_sum(rq, rq)))
+
+    b2 = col_sum(bq, bq)
+    tol2 = (rtol * rtol) * torch.clamp(b2, min=1e-300)
+    x, _ = M(bq)
+    r = bq - mv(x)
+    z, rz = M(r)
+    p = z
+    r2 = col_sum(r, r)
+    best = torch.sum(r2)
+    bad = torch.zeros((), dtype=torch.int64, device=bb.device)
+    k = 0
+    while k < maxiter:
+        why = _oracle_exit(fac, r2, tol2, bad)
+        if why:
+            break
+        Ap = mv(p)
+        pAp = col_sum(p, Ap)
+        active = (r2 > tol2).to(torch.float32)
+        pos = pAp > 0
+        alpha = torch.where(pos, rz / torch.where(pos, pAp, 1.0),
+                            0.0) * active
+        x = x + p * alpha[None, :, None, None]
+        r_new = r - Ap * alpha[None, :, None, None]
+        z, rz_new = M(r_new)
+        rz_flex = rz_new - col_sum(r, z)
+        nz = rz != 0.0
+        beta = torch.where(nz, rz_flex / torch.where(nz, rz, 1.0), 0.0)
+        p = z + p * beta[None, :, None, None]
+        r2 = col_sum(r_new, r_new)
+        improving = torch.sum(r2) < 0.9 * best
+        bad = torch.where(improving, 0, bad + 1)
+        best = torch.minimum(best, torch.sum(r2))
+        r, rz = r_new, rz_new
+        k += 1
+    else:
+        why = "maxiter"
+    return cuda_stencil.from_planes(x, nx, ny, nd), k, r2, why
+
+
+# (maxiter, the factor's lambda_max scale) of each exit: Chebyshev smoothers
+# tuned to 0.6 of lambda_max amplify the top of the spectrum, and the
+# V-cycle stops being a convergent preconditioner
+EXITS = {"converged": (60, 1.0), "stagnated": (60, 0.6),
+         "maxiter": (3, 1.0)}
+
+
+def _count_guard(fac, name):
+    """Wrap the factor's V-cycle entry ``name`` (r last among its
+    arguments) so that it counts the columns whose r.z is not positive,
+    the columns where the loop's descent guard takes r for z."""
+    inner = getattr(fac, name)
+    fired = [0]
+
+    def wrapped(*args):
+        r = args[-1]
+        z = inner(*args)
+        dims = tuple(d for d in range(r.ndim) if d != 1)
+        fired[0] += int((torch.sum(r * z.to(r.dtype), dim=dims) <= 0).sum())
+        return z
+
+    setattr(fac, name, wrapped)
+    return fired
+
+
+@pytest.fixture(scope="module")
+def built_factor(problem):
+    """The port's factor of ``problem``'s stencil, its lambda_max estimates
+    drawn from a seeded generator."""
+    return tmg.GridMGFactor.build(torch.as_tensor(problem[0]), (NX, NY), 2,
+                                  min_coarse=64,
+                                  generator=torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("variant,vcycle", [
+    ("f64", "plain"), ("f64", "kernel"), ("f64_x0", "plain"),
+    ("f64_x0", "kernel"), ("f32", "plain"), ("f32", "kernel"),
+    ("f32_planes", "kernel")])
+@pytest.mark.parametrize("exit_", list(EXITS))
+def test_flexible_pcg_bitwise_as_the_loops_it_replaced(problem, built_factor,
+                                                       variant, vcycle, exit_):
+    """``flexible_pcg`` through the factor's vector entry point (f64, f64
+    warm-started, f32) and its plane entry point (f32 planes, kernel
+    variant) against the loops it replaced: x and the final squared
+    residuals bitwise, the same step count, the same exit, counted once at
+    the loop's site. The stagnating V-cycle trips the descent guard, and
+    only it: the guard's counted firings are held to that."""
+    W, dense, _ = problem
+    maxiter, scale = EXITS[exit_]
+    f = built_factor
+    fac = tmg.GridMGFactor(f.Ws, f.dinvs, [scale * v for v in f.lmaxs],
+                           f.coarse_inv, f.W64, f.shapes, 2, vcycle=vcycle)
+    fired = _count_guard(fac, "_vcycle_planes" if variant == "f32_planes"
+                         else "_apply_vcycle32")
+    rt64, rt32 = 1e-10, 1e-5
+    b = torch.as_tensor(np.random.default_rng(7).standard_normal(
+        (dense.shape[0], 3)))
+    sync.clear()
+    if variant == "f32_planes":
+        b = b.float()
+        x, info = fac._pcg32(b, rt32, maxiter)
+        fired_port = fired[0]
+        ref = _oracle_pcg_planes(fac, b, rt32, maxiter)
+        site = "pcg_f32_planes"
+    elif variant == "f32":
+        b = b.float()
+        x, info = fac._pcg(b, fac._matvec32, rt32, maxiter)
+        fired_port = fired[0]
+        ref = _oracle_pcg(fac, b, fac._matvec32, rt32, maxiter)
+        site = "pcg_f32"
+    else:
+        x0 = 0.5 * b if variant == "f64_x0" else None
+        x, info = fac._pcg(b, fac._matvec64, rt64, maxiter, x0=x0)
+        fired_port = fired[0]
+        ref = _oracle_pcg(fac, b, fac._matvec64, rt64, maxiter, x0=x0)
+        site = "pcg_f64"
+    xr, kr, r2r, why = ref
+    assert why == exit_
+    assert torch.equal(x, xr) and torch.equal(info["res2"], r2r)
+    assert info["niter"] == kr
+    assert dict(sync.LOOP_EXITS) == {f"{site}.{why}": 1}
+    assert sync.LOOP_STEPS[site] == kr
+    assert sync.HOST_SYNCS[site] == kr + (why != "maxiter")
+    assert (fired_port > 0) == (exit_ == "stagnated")

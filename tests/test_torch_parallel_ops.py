@@ -28,6 +28,7 @@ from eigd_tpu.parallel import mgshard as jmg
 from eigd_tpu.parallel import sharded as jsh
 from eigd_tpu_torch import interop
 from eigd_tpu_torch.models.crm import CRM
+from eigd_tpu_torch.ops import sync
 from eigd_tpu_torch.parallel import grid as tgrid
 from eigd_tpu_torch.parallel import launch, runs
 from eigd_tpu_torch.parallel.sharded import station_buckets
@@ -451,3 +452,232 @@ def test_sharded_stencil_matvec_gradient(cases, mesh):
                                    rtol=1e-12, atol=1e-12)
     np.testing.assert_allclose(port[0]["stencil_mv_grad_x"], gx, rtol=1e-12,
                                atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# The sharded PCG loops at world 1 against the loops they replaced
+# ---------------------------------------------------------------------------
+
+
+def _oracle_mgshard_pcg(fac, bb, matvec, rtol, maxiter):
+    """``ShardedGridMGFactor._pcg`` as it stood before ``flexible_pcg``
+    replaced it: (x, steps, final r2, exit)."""
+    from eigd_tpu_torch.ops.collective import psum
+
+    axis = fac.axis
+    dtype = bb.dtype
+
+    def M(r, r_old=None):
+        z = fac._vcycle(r).to(dtype)
+        sums = [torch.sum(r * z, dim=0), torch.sum(r * r, dim=0)]
+        if r_old is not None:
+            sums.append(torch.sum(r_old * z, dim=0))
+        sums = psum(torch.stack(sums), axis)
+        ok = sums[0] > 0.0
+        return (torch.where(ok[None, :], z, r),
+                torch.where(ok, sums[0], sums[1]), *sums[1:])
+
+    tol2 = (rtol * rtol) * torch.clamp(
+        psum(torch.sum(bb * bb, dim=0), axis), min=1e-300)
+    x = M(bb)[0]
+    r = bb - matvec(x)
+    z, rz, r2 = M(r)
+    p = z
+    best = torch.sum(r2)
+    bad = torch.zeros((), dtype=torch.int64, device=bb.device)
+    k = 0
+    while k < maxiter:
+        unconverged, fresh = torch.stack(
+            [torch.any(r2 > tol2), bad < fac.stag_bad]).tolist()
+        if not (unconverged and fresh):
+            why = "stagnated" if unconverged else "converged"
+            break
+        Ap = matvec(p)
+        pAp = psum(torch.sum(p * Ap, dim=0), axis)
+        active = (r2 > tol2).to(dtype)
+        pos = pAp > 0
+        alpha = torch.where(pos, rz / torch.where(pos, pAp, 1.0),
+                            0.0) * active
+        x = x + p * alpha[None, :]
+        r_new = r - Ap * alpha[None, :]
+        z, rz_new, r2, rz_old = M(r_new, r)
+        rz_flex = rz_new - rz_old
+        nz = rz != 0.0
+        beta = torch.where(nz, rz_flex / torch.where(nz, rz, 1.0), 0.0)
+        p = z + p * beta[None, :]
+        improving = torch.sum(r2) < 0.9 * best
+        bad = torch.where(improving, 0, bad + 1)
+        best = torch.minimum(best, torch.sum(r2))
+        r, rz = r_new, rz_new
+        k += 1
+    else:
+        why = "maxiter"
+    return x, k, r2, why
+
+
+def _oracle_schwarz(fac, bvec):
+    """``SchwarzPCGFactor.mv_info`` as it stood before ``blocked_pcg``
+    replaced its loop: (x, info)."""
+    from eigd_tpu_torch.ops.collective import psum
+
+    axis = fac.axis
+
+    def colsum(p, q):
+        return psum(torch.sum(p * q, dim=0), axis)
+
+    tol2 = (fac.tol ** 2) * torch.clamp(colsum(bvec, bvec), min=1e-300)
+    x = torch.zeros_like(bvec)
+    r = bvec
+    p = fac.btf.mv(bvec)
+    rz = colsum(bvec, p)
+    r2 = colsum(r, r)
+    k = 0
+    while k < fac.maxiter and bool(torch.any(r2 > tol2)):
+        ap = fac.op.mv(p)
+        pap = colsum(p, ap)
+        active = r2 > tol2
+        alpha = torch.where(active & (pap != 0.0),
+                            rz / torch.where(pap == 0.0, 1.0, pap), 0.0)
+        x = x + alpha[None, :] * p
+        r = r - alpha[None, :] * ap
+        z = fac.btf.mv(r)
+        rz_new, r2 = psum(torch.stack([torch.sum(r * z, dim=0),
+                                       torch.sum(r * r, dim=0)]), axis)
+        beta = torch.where(rz != 0.0,
+                           rz_new / torch.where(rz == 0.0, 1.0, rz), 0.0)
+        p = torch.where(active[None, :], z + beta[None, :] * p, p)
+        rz = rz_new
+        k += 1
+    return x, {"niter": k, "res2": r2, "tol2": tol2}
+
+
+@pytest.fixture(scope="module")
+def world1():
+    """The 16x8 shifted stencil and the 13x5 shifted element matrices on
+    world-1 partitions, with right-hand sides of three columns."""
+    rng = np.random.default_rng(13)
+    K, M, mp, _ = _grid_inputs(16, 8, 5, 1, multiple=4)
+    W = np.asarray(stencil_from_elements(
+        jnp.asarray(np.asarray(K.mats) + 10.0 * np.asarray(M.mats)), 16, 8,
+        2))
+    W_rep = np.zeros((mp.L,) + W.shape[1:])
+    W_rep[:mp.nlines] = W
+    K, M, part, cm = _grid_inputs(13, 5, 3, 1)
+    return dict(mg_part=mp, W=torch.as_tensor(W_rep),
+                xmg=torch.as_tensor(interop.to_padded(
+                    rng.standard_normal((mp.n, 3)), mp)),
+                part=part, shifted=torch.as_tensor(cm(K.mats)
+                                                   + 10.0 * cm(M.mats)),
+                dofs=torch.as_tensor(tgrid.local_dof_map(part),
+                                     dtype=torch.int64),
+                x=torch.as_tensor(interop.to_padded(
+                    rng.standard_normal((part.n, 3)), part)))
+
+
+def _jax_mgshard_pcg(W_rep, part, b, lmaxs, tail_lmaxs, f64, rtol, maxiter):
+    """JAX's ``ShardedGridMGFactor._pcg`` under ``shard_map`` on one
+    device, its lambda_max estimates replaced by the port's (the two draw
+    their power iterations' start vectors differently)."""
+    def solve(W_l, bb):
+        f = jmg.ShardedGridMGFactor.build(W_l, part, "grid", shard_levels=2)
+        f.lmaxs = tuple(jnp.float32(v) for v in lmaxs)
+        f.tail.lmaxs = tuple(jnp.float32(v) for v in tail_lmaxs)
+        if f64:
+            return f._pcg(bb, f._matvec64, rtol, maxiter)
+        (L, nlines, _, ny), = f.meta[3][:1]
+        return f._pcg(bb, lambda v: jmg.sharded_stencil_matvec(
+            f.Ws[0], v, L, nlines, ny, part.ndof, "grid", 1), rtol, maxiter)
+
+    mesh1 = Mesh(np.array(jax.devices()[:1]), ("grid",))
+    return _smap(mesh1, solve, W_rep, b)
+
+
+@pytest.mark.parametrize("f64", [True, False])
+@pytest.mark.parametrize("exit_", ["converged", "stagnated", "maxiter"])
+def test_sharded_mg_pcg_bitwise_at_world_1(world1, f64, exit_):
+    """The line-sharded mg factor's PCG (f64 on K2's twin, f32 on K1's)
+    on a world-1 gloo group: ``flexible_pcg`` with all-reduced sums
+    against the loop it replaced, x and the residuals bitwise, the same
+    steps and exit. The stagnating case (smoothers tuned to 0.6 of
+    lambda_max) trips the descent guard, and only it does (its firings
+    counted through the wrapped V-cycle). There the old loop took r_old.z
+    from the V-cycle's output before the guard, where JAX's ``_pcg`` and
+    the serial loop take it from the guarded direction: the solve is held
+    bitwise to ``flexible_pcg`` with local sums on the same V-cycle, and
+    to JAX's sharded ``_pcg`` within 64 f32 roundings of max |x| (the
+    V-cycles' f32 sums run in other orders; the old loop's x lies 0.6 of
+    max |x| from JAX's there)."""
+    from eigd_tpu_torch.ops.multigrid import flexible_pcg
+    from eigd_tpu_torch.parallel.mgshard import ShardedGridMGFactor
+
+    maxiter = 3 if exit_ == "maxiter" else 60
+    with launch.local_axis("cpu") as axis:
+        fac = ShardedGridMGFactor.build(world1["W"], world1["mg_part"], axis,
+                                        shard_levels=2)
+        if exit_ == "stagnated":
+            fac.levels = tuple(lv[:6] + (0.6 * lv[6],) for lv in fac.levels)
+            fac.tail.lmaxs = tuple(0.6 * v for v in fac.tail.lmaxs)
+        vcycle, fired = fac._vcycle, [0]
+
+        def counted(r):
+            z = vcycle(r)
+            fired[0] += int((torch.sum(r * z.to(r.dtype), dim=0) <= 0).sum())
+            return z
+
+        fac._vcycle = counted
+        b = world1["xmg"] if f64 else world1["xmg"].float()
+        matvec, rtol = ((fac._matvec64, 1e-10) if f64
+                        else (fac._matvec32, 1e-5))
+        site = "mgshard_f64" if f64 else "mgshard_f32"
+        sync.clear()
+        x = fac._solve(b, f64, rtol, maxiter)
+        exits, steps = dict(sync.LOOP_EXITS), sync.LOOP_STEPS[site]
+        fac._vcycle = vcycle
+        if exit_ == "stagnated":
+            xr, info = flexible_pcg(b, matvec, fac._vcycle, rtol, maxiter,
+                                    fac.stag_bad, site)
+            kr = info["niter"]
+        else:
+            xr, kr, _, why = _oracle_mgshard_pcg(fac, b, matvec, rtol,
+                                                 maxiter)
+            assert why == exit_
+    assert torch.equal(x, xr)
+    assert exits == {f"{site}.{exit_}": 1} and steps == kr
+    assert (fired[0] > 0) == (exit_ == "stagnated")
+    if exit_ == "stagnated":
+        W = world1["W"].numpy()
+        ref = _jax_mgshard_pcg(W if f64 else W.astype(np.float32),
+                               world1["mg_part"], b.numpy(),
+                               [lv[6] for lv in fac.levels],
+                               fac.tail.lmaxs, f64, rtol, maxiter)
+        err = np.abs(x.numpy() - ref).max() / np.abs(ref).max()
+        assert err <= 64 * np.finfo(np.float32).eps
+
+
+@pytest.mark.parametrize("pre,maxiter,why", [
+    ("block", 200, "converged"), ("none", 400, "converged"),
+    ("none", 5, "maxiter")])
+def test_schwarz_pcg_bitwise_at_world_1(world1, pre, maxiter, why):
+    """SchwarzPCGFactor on a world-1 gloo group: ``blocked_pcg`` with
+    all-reduced sums against the loop it replaced, x and the info bitwise,
+    the same exit. At world 1 the rank-local block factor is exact (one
+    step), so the loop also runs unpreconditioned (plain CG), to its
+    tolerance and cut at maxiter."""
+    from types import SimpleNamespace
+
+    from eigd_tpu_torch.parallel.sharded import SchwarzPCGFactor
+
+    with launch.local_axis("cpu") as axis:
+        fac = SchwarzPCGFactor.build(world1["shifted"], world1["dofs"],
+                                     world1["part"], axis, maxiter=maxiter,
+                                     tol=1e-13)
+        if pre == "none":
+            fac.btf = SimpleNamespace(mv=torch.clone)
+        sync.clear()
+        x, info = fac.mv_info(world1["x"])
+        exits = dict(sync.LOOP_EXITS)
+        xr, ref = _oracle_schwarz(fac, world1["x"])
+    assert torch.equal(x, xr) and info["niter"] == ref["niter"]
+    assert torch.equal(info["res2"], ref["res2"])
+    assert torch.equal(info["tol2"], ref["tol2"])
+    assert exits == {f"schwarz_pcg.{why}": 1}
