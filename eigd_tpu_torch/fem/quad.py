@@ -10,6 +10,7 @@ alone). Element DOF ordering is
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -30,14 +31,20 @@ def shape_functions(xi, eta):
     return N, Nxi, Neta
 
 
+@functools.lru_cache(maxsize=None)
+def _shape_functions_on(xi, eta, device, dtype):
+    """``shape_functions`` on ``device``, copied from the host once: each
+    such copy waits for the device to finish its queue."""
+    return tuple(v.to(device, dtype) for v in shape_functions(xi, eta))
+
+
 def _grads(xe, ye, xi, eta):
     """Physical shape-function gradients and detJ at one quadrature point.
 
     xe, ye: (nelems, 4) element nodal coordinates.
     Returns N (4,), Nx, Ny (nelems, 4), detJ (nelems,).
     """
-    N, Nxi, Neta = (v.to(xe.device, xe.dtype)
-                    for v in shape_functions(xi, eta))
+    N, Nxi, Neta = _shape_functions_on(xi, eta, xe.device, xe.dtype)
     J00 = xe @ Nxi
     J10 = ye @ Nxi
     J01 = xe @ Neta

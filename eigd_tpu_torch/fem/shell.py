@@ -17,6 +17,8 @@ block-diagonal frames as two batched GEMMs.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -59,6 +61,18 @@ def _scatter(rows, nelems, like):
     return B
 
 
+@functools.lru_cache(maxsize=None)
+def _constants(nu, device, dtype):
+    """The plane-stress matrix over E / (1 - nu^2) and the translation
+    and rotation masks of a node's DOF, made on ``device`` once: each
+    copy from the host waits for the device to finish its queue."""
+    f64 = dict(dtype=dtype, device=device)
+    return (torch.tensor([[1.0, nu, 0.0], [nu, 1.0, 0.0],
+                          [0.0, 0.0, 0.5 * (1.0 - nu)]], **f64),
+            torch.tensor([1.0, 1.0, 1.0, 0.0, 0.0, 0.0], **f64),
+            torch.tensor([0.0, 0.0, 0.0, 1.0, 1.0, 0.0], **f64))
+
+
 def shell_element_matrices(Xe, thickness, E=70e9, nu=0.3, rho=2700.0,
                            kappa_s=5.0 / 6.0, drill=1e-5):
     """Batched shell stiffness and mass matrices in GLOBAL coordinates.
@@ -72,16 +86,14 @@ def shell_element_matrices(Xe, thickness, E=70e9, nu=0.3, rho=2700.0,
     t = thickness
     f64 = dict(dtype=Xe.dtype, device=Xe.device)
 
-    C0 = E / (1.0 - nu**2) * torch.tensor(
-        [[1.0, nu, 0.0], [nu, 1.0, 0.0], [0.0, 0.0, 0.5 * (1.0 - nu)]], **f64)
+    C0, trans, rot = _constants(nu, Xe.device, Xe.dtype)
+    C0 = E / (1.0 - nu**2) * C0
     Gmod = E / (2.0 * (1.0 + nu))
 
     Kl = Xe.new_zeros((nelems, 24, 24))
     Ml = Xe.new_zeros((nelems, 24, 24))
     area = Xe.new_zeros(nelems)
     eye6 = torch.eye(6, **f64)
-    trans = torch.tensor([1.0, 1.0, 1.0, 0.0, 0.0, 0.0], **f64)
-    rot = torch.tensor([0.0, 0.0, 0.0, 1.0, 1.0, 0.0], **f64)
 
     for gx in GAUSS:
         for gy in GAUSS:

@@ -45,6 +45,15 @@ from .natural_frequency import weakly
 
 FACTOR_KINDS = ("cholesky", "bcr", "bcr_f32", "blocktridiag",
                 "blocktridiag_f32")
+# shells in one part of the scalable kinds' assembly for the adjoint's
+# bilinear-form VJP (``EigProblem.assemble_parts``). On an H100, crm_86k's
+# 12,288 shells in one part raised finalize_adjoint 0.49 GiB above the
+# seeds, the peak of its design iteration; in parts of 4,096 it rises
+# 0.17 GiB, below the factor build's peak. Each part costs a whole
+# assembly and its backward issued from the host, about 15 ms whatever
+# its size, so a smaller part lowers the rise little (0.11 GiB at 2,048)
+# for twice the parts.
+VJP_PART = 4096
 
 
 def balance_node_blocks(station, conn, nb, passes=6):
@@ -330,9 +339,10 @@ class CRM:
             polish_spare=int(lanczos_polish_spare), block=lanczos_block,
             lanczos_ortho=lanczos_ortho, lanczos_sweep=lanczos_sweep)
         if self.scalable:
-            self.problem = EigProblem(assemble=weakly(self._assemble),
-                                      factor=weakly(self._factor),
-                                      v0=weakly(self._v0))
+            self.problem = EigProblem(
+                assemble=weakly(self._assemble), factor=weakly(self._factor),
+                v0=weakly(self._v0),
+                assemble_parts=weakly(self._assemble_parts))
         else:
             self.problem = EigProblem(assemble=weakly(self._assemble))
         self.lam = self.Qr = self.Q = None
@@ -363,10 +373,12 @@ class CRM:
 
     # -- differentiable assembly -------------------------------------------
 
-    def _element_mats(self, tcomp):
-        Ke, Me = shell_element_matrices(self.X[self.conn], tcomp[self.comp],
+    def _element_mats(self, tcomp, sl=slice(None)):
+        """Masked (Ke, Me) of the elements ``sl``."""
+        Ke, Me = shell_element_matrices(self.X[self.conn[sl]],
+                                        tcomp[self.comp[sl]],
                                         E=self.E, nu=self.nu, rho=self.rho)
-        me = self.free_mask[self.dofs]
+        me = self.free_mask[self.dofs[sl]]
         mm = me[:, :, None] * me[:, None, :]
         return Ke * mm, Me * mm
 
@@ -382,6 +394,15 @@ class CRM:
                                        self.free[None, :]])
 
         return reduced(Ke), reduced(Me)
+
+    def _assemble_parts(self, tcomp):
+        """The scalable kinds' (K, M) element operators over consecutive
+        slices of at most ``VJP_PART`` elements, each built when the
+        previous one is done with; summed, they are ``_assemble``'s."""
+        for start in range(0, self.dofs.shape[0], VJP_PART):
+            sl = slice(start, start + VJP_PART)
+            yield tuple(ElementOperator(mats, self.dofs[sl], self.nvars)
+                        for mats in self._element_mats(tcomp, sl))
 
     def _factor(self, A, B, sig, mode):
         """The block-tridiagonal factor of A - sig B on the station layout.

@@ -15,8 +15,9 @@ reverse sweep through the single-vector chain) with the
 repeated-eigenvalue correction and chains the matrix cotangents into
 theta by ``torch.autograd.grad`` of the bilinear forms
 sum_i w_i^T A(theta) phi_i -/+ sum_i v_i^T B(theta) phi_i (minus in the
-normal mode, plus in the buckling mode) over a fresh, plain assembly. So
-no kernel is ever inside the autograd graph, and the kernels need no
+normal mode, plus in the buckling mode) over a fresh, plain assembly,
+taken part by part where the problem offers ``assemble_parts``. So no
+kernel is ever inside the autograd graph, and the kernels need no
 backward.
 
 ``eigh_gen_dense`` takes explicit (A, B) and returns the matrix
@@ -96,12 +97,17 @@ class EigProblem:
     nullspace(theta) -> (k, n) rows of a known null space of A (deflated).
     factor(A, B, sigma, mode) -> shift-invert factor.
     v0(theta) -> Lanczos start vector or (n, p) block, optional.
+    assemble_parts(theta) -> an iterator of (A_k, B_k) operators, built
+        one at a time, whose sums are assemble(theta); optional. The
+        backward pass then takes the bilinear-form VJP part by part, so
+        only one part's autograd graph is alive at a time.
     """
 
     assemble: Callable
     nullspace: Callable = None
     factor: Callable = None
     v0: Callable = None
+    assemble_parts: Callable = None
 
 
 def kernels_on(kernel_mv, device):
@@ -300,6 +306,14 @@ def eigh_gen_dense(A, B, cfg: EighGenConfig):
     return EighGenDense.apply(A, B, cfg)
 
 
+def _add_bars(a, b):
+    """a + b of two gradients of ``allow_unused`` (None for a leaf the
+    part does not reach)."""
+    if a is None or b is None:
+        return b if a is None else a
+    return a + b
+
+
 class EighGen(torch.autograd.Function):
     """N smallest eigenpairs of A(theta) phi = lam B(theta) phi. theta
     arrives as its leaves: one tensor, or the tensors of a tuple
@@ -328,12 +342,20 @@ class EighGen(torch.autograd.Function):
                                           Phi_bar, ctx.cfg, deflate=deflate)
         with torch.enable_grad():
             ths = [t.detach().requires_grad_(True) for t in leaves]
-            A2, B2 = ctx.problem.assemble(tuple(ths) if ctx.packed
-                                          else ths[0])
-            fA = torch.sum(W_A * A2.mv(Phi))
-            fB = torch.sum(W_B * B2.mv(Phi))
-            f = fA - fB if ctx.cfg.mode == "normal" else fA + fB
-            bars = torch.autograd.grad(f, ths, allow_unused=True)
+            theta = tuple(ths) if ctx.packed else ths[0]
+            if ctx.problem.assemble_parts is None:
+                parts = [ctx.problem.assemble(theta)]
+            else:
+                parts = ctx.problem.assemble_parts(theta)
+            bars = None
+            for A2, B2 in parts:
+                fA = torch.sum(W_A * A2.mv(Phi))
+                fB = torch.sum(W_B * B2.mv(Phi))
+                f = fA - fB if ctx.cfg.mode == "normal" else fA + fB
+                g = torch.autograd.grad(f, ths, allow_unused=True)
+                # the part and its graph go before the next part is built
+                del A2, B2, fA, fB, f
+                bars = g if bars is None else tuple(map(_add_bars, bars, g))
         return (None, None, None, *bars)
 
 

@@ -218,3 +218,44 @@ def test_gradient_matches_finite_difference():
               - t_objective(topo, topo.x - h * p)[0].item()) / (2 * h)
     ans = float(p.numpy() @ g)
     assert abs(ans - fd) <= 1e-6 * abs(fd)
+
+
+def test_vjp_without_parts_is_the_one_assembly():
+    """A problem without ``assemble_parts`` (the NF model) takes the
+    bilinear-form VJP over one assembly: xb of ``EighGen``'s backward is
+    bitwise the adjoint solve on the kept solve followed by one
+    ``torch.autograd.grad`` of sum(W_A * A phi) - sum(W_B * B phi) over
+    ``problem.assemble``, and the backward assembles once."""
+    from eigd_tpu_torch.fem import assembly as tfem
+    from eigd_tpu_torch.ops import autodiff as tad
+
+    topo = t_model()
+    assert topo.problem.assemble_parts is None
+    built = []
+
+    def counted(theta):
+        built.append(1)
+        return topo.problem.assemble(theta)
+
+    problem = dataclasses.replace(topo.problem, assemble=counted)
+    rhoE = tfem.element_density(topo.fltr.apply(topo.x), topo.conn)
+    rhoE = rhoE.detach().requires_grad_(True)
+    lam, Phi = tad.eigh_gen(rhoE, problem, topo.cfg)
+    g = torch.Generator().manual_seed(5)
+    lam_bar = torch.rand(lam.shape, generator=g, dtype=lam.dtype)
+    Phi_bar = torch.rand(Phi.shape, generator=g, dtype=Phi.dtype)
+
+    (leaf,), (A, B, res, factor) = tad._kept_solve(lam.grad_fn)
+    W_A, W_B, Phi_k = tad.solve_eig_adjoint(A, B, res, factor, lam_bar,
+                                            Phi_bar, topo.cfg)
+    with torch.enable_grad():
+        th = leaf.detach().requires_grad_(True)
+        A2, B2 = topo.problem.assemble(th)
+        f = (torch.sum(W_A * A2.mv(Phi_k))
+             - torch.sum(W_B * B2.mv(Phi_k)))
+        (ref,) = torch.autograd.grad(f, th)
+
+    built.clear()
+    (xb,) = torch.autograd.grad((lam, Phi), rhoE, (lam_bar, Phi_bar))
+    assert torch.equal(xb, ref)
+    assert len(built) == 1
