@@ -22,7 +22,7 @@ from . import eig
 RIGID = 3  # two translations and a rotation: K's null space, free-free
 
 
-def _grid(nx, ny, Lx, Ly):
+def grid(nx, ny, Lx, Ly):
     """Node (i, j) is i*(ny+1) + j; element i + nx*j has the nodes
     (i,j), (i+1,j), (i+1,j+1), (i,j+1)."""
     nodes = np.arange((nx + 1) * (ny + 1)).reshape(nx + 1, ny + 1)
@@ -75,7 +75,7 @@ def design_points(model):
     """(ndv, 2): where each design variable lies, at the first-quadrant
     node of the four it maps (the others are its mirror images)."""
     nx, ny = model["nx"], model["ny"]
-    nodes, X, _ = _grid(nx, ny, model.get("Lx", 1.0), model.get("Ly", 1.0))
+    nodes, X, _ = grid(nx, ny, model.get("Lx", 1.0), model.get("Ly", 1.0))
     dvmap, ndv, _ = _design_map(nodes, nx, ny, model.get("Mx", 3),
                                 model.get("My", 3), model.get("ns", 2),
                                 model.get("rfact", 4.0))
@@ -83,6 +83,25 @@ def design_points(model):
     points = np.full((ndv, 2), np.inf)
     np.minimum.at(points, dvmap[free], X[free])
     return points
+
+
+def density_filter(X, r0):
+    """The density filter as a sparse matrix: weights (r0 - d) over the
+    nodes within r0, normalised to sum 1 in each row."""
+    nnodes = X.shape[0]
+    tree = cKDTree(X)
+    D = tree.sparse_distance_matrix(tree, r0 * (1 + 1e-12),
+                                    output_type="coo_matrix")
+    off = D.row != D.col  # the node itself is added below, at d = 0
+    diag = np.arange(nnodes)
+    F = sp.csr_matrix(
+        (np.concatenate([np.maximum(r0 - D.data[off], 0.0),
+                         np.full(nnodes, r0)]),
+         (np.concatenate([D.row[off], diag]),
+          np.concatenate([D.col[off], diag]))),
+        shape=(nnodes,) * 2)
+    rows = np.asarray(F.sum(axis=1)).ravel()
+    return sp.diags(1.0 / rows) @ F
 
 
 def _q4_plane_stress(hx, hy, E, nu):
@@ -127,28 +146,13 @@ class Problem:
         self.rho0_K = kw.get("rho0_K", 1e-6)
         self.density = kw.get("density", 1.0)
         E, nu = kw.get("E", 1.0), kw.get("nu", 0.3)
-        nodes, self.X, self.conn = _grid(self.nx, self.ny, Lx, Ly)
+        nodes, self.X, self.conn = grid(self.nx, self.ny, Lx, Ly)
         self.nnodes = self.X.shape[0]
         self.n = 2 * self.nnodes
         self.dvmap, self.ndv, self.node_sets = _design_map(
             nodes, self.nx, self.ny, kw.get("Mx", 3), kw.get("My", 3),
             kw.get("ns", 2), rfact)
-        # the density filter: weights (r0 - d) over nodes within r0,
-        # normalised to sum 1 in each row
-        r0 = rfact * Ly / self.ny
-        tree = cKDTree(self.X)
-        D = tree.sparse_distance_matrix(tree, r0 * (1 + 1e-12),
-                                        output_type="coo_matrix")
-        off = D.row != D.col  # the node itself is added below, at d = 0
-        diag = np.arange(self.nnodes)
-        F = sp.csr_matrix(
-            (np.concatenate([np.maximum(r0 - D.data[off], 0.0),
-                             np.full(self.nnodes, r0)]),
-             (np.concatenate([D.row[off], diag]),
-              np.concatenate([D.col[off], diag]))),
-            shape=(self.nnodes,) * 2)
-        rows = np.asarray(F.sum(axis=1)).ravel()
-        self.F = sp.diags(1.0 / rows) @ F
+        self.F = density_filter(self.X, rfact * Ly / self.ny)
         free = self.dvmap >= 0
         self.P = sp.csr_matrix((np.ones(int(free.sum())),
                                 (np.nonzero(free)[0], self.dvmap[free])),
